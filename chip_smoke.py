@@ -6,14 +6,19 @@
 Phases (each prints one line with what it checked and its time; any
 mismatch or exception exits non-zero before the result line):
   1. build   — compiles the port's CUDA sources with nvcc for sm_90a, one
-               process each, and prints the card's name and power limit;
+               process each, all started together, prints each kernel's
+               ptxas register and spill lines and the card's name and power
+               limit;
   2. kernels — K1 (Montgomery multiply) at 4096, 131072 and 811008 lanes on
-               Fp and Fr with lazy input limbs, K2 (G1 complete add, with and
-               without reset mask) and K3 (G1 doubling chain, times 1 and 8)
-               over 8192 lanes with infinity, doubling and negation cases:
-               each held against its plain PyTorch version on the same card
-               tensors (exact equality of limbs or of canonical affine
-               points) and sampled lanes against python-int arithmetic;
+               Fp and Fr with lazy input limbs; K2/K4 (G1/G2 complete add,
+               with and without reset mask) and K3/K5 (G1/G2 doubling chain,
+               times 1 and 8) over 8192 lanes with infinity, doubling and
+               negation cases; K6 (merge combine, G1 and G2) over 8192 lanes
+               with random masks: each held against its plain PyTorch
+               version on the same card tensors (exact equality of limbs or
+               of canonical affine points), outputs checked fresh (exact
+               16-bit limbs, < 1.1p) and sampled lanes against python-int
+               arithmetic;
   3. golden  — reproduces the BN254 golden bytes of
                tests/fixtures/golden/ from the 48-term setup file, verifies
                the whole-message proof and refutes a changed byte;
@@ -21,16 +26,23 @@ mismatch or exception exits non-zero before the result line):
                5000 terms (with its oracle self-check), from_blob of 4097
                characters (degree 4096), create_commit, create_proof(p, 0, 1),
                verify_proof true and a one-bit refutation false; cold times,
-               warm medians and each kernel's launches on the path; then
-               one warm commit, proof and verify under torch.profiler (device
-               time, busy share, launches and the kernels that take the most
-               device time);
-  5. kernels line — each kernel held against its plain version once more at
-               the heaviest shape the main path gave it, then one JSON
-               object: each kernel's launches on the main path, its largest
-               error against the plain version, its device time per launch,
-               the plain version's time per call, and the bound at that
-               shape.
+               warm medians and each kernel's launches on the path (K1-K5
+               must all run); then one warm commit, proof and verify under
+               torch.profiler (device time, busy share, launches and the
+               kernels that take the most device time);
+  5. msm     — the merge strategy's path (msm over arbitrary bases, the
+               JAX package's TPU path for msm), on the main phase's setup
+               and polynomial: G1 over the first 4097 setup points equals
+               the commitment, G2 over the first 4097 G2 setup points equals
+               the chunked G2 msm_shifted; log and scan at 256 points equal
+               chunked; cold time, warm median and launches per call (K6
+               must run);
+  6. kernels line — each kernel held against its plain version once more at
+               the heaviest shape its path gave it, then one JSON object:
+               each kernel's launches on the main and msm paths, its
+               largest error against the plain version, its device time per
+               launch, the plain version's time per call, and the bound at
+               that shape.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -53,6 +65,10 @@ DEGREE = 4096
 WARM_RUNS = 3
 K1_LANES = (4096, 131072, 811008)        # scripts/tpu_checks.py's sizes
 K23_LANES = 8192
+MSM_POINTS = DEGREE + 1                  # the merge msm of the msm phase
+MSM_SCAN_POINTS = 256                    # its log and scan strategies
+MAIN_KERNELS = ("mont_mul", "g1_add", "g1_dbl", "g2_add", "g2_dbl")
+MSM_KERNELS = ("merge_combine_g1", "merge_combine_g2")
 # published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores (67 TFLOP/s, an FMA counted as two
 # operations), taken as the ceiling for the kernels' integer
@@ -131,7 +147,7 @@ def host_ms(fn, runs):
         fn()
         sync()
         warm.append((time.time() - t0) * 1e3)
-    return out, cold, statistics.median(warm)
+    return out, cold, statistics.median(warm) if warm else None
 
 
 def smi():
@@ -170,32 +186,66 @@ def to_int(col):
     return sum(int(v) << (16 * j) for j, v in enumerate(col))
 
 
-def g1_inputs(ctx, lanes, rng):
-    """Two G1 batches of `lanes` points: pool points under random projective
-    rescaling, with infinity, P == Q and Q == -P lanes."""
-    from kzg_tpu_torch.refmodel.model import G1
-    og = G1(ctx.cp)
-    pool = [og.mul(rng.randrange(1, ctx.cp.r), og.gen) for _ in range(48)]
-    ip = [rng.randrange(len(pool)) for _ in range(lanes)]
-    iq = [rng.randrange(len(pool)) for _ in range(lanes)]
-    pts_p = [pool[i] for i in ip]
-    pts_q = [pool[i] for i in iq]
+def point_inputs(ctx, G, og, pool_size, lanes, rng):
+    """Two batches of `lanes` points of group G (og its oracle): pool points
+    under a random projective rescaling, with infinity, P == Q and Q == -P
+    lanes."""
+    pool = [og.mul(rng.randrange(1, ctx.cp.r), og.gen)
+            for _ in range(pool_size)]
+    pts_p = [pool[rng.randrange(pool_size)] for _ in range(lanes)]
+    pts_q = [pool[rng.randrange(pool_size)] for _ in range(lanes)]
     for j in range(0, lanes - 7, 8):
         pts_q[j] = pts_p[j]                              # doubling
         pts_q[j + 1] = og.neg(pts_p[j + 1])              # negation
         pts_p[j + 2] = None                              # inf + Q
         pts_q[j + 3] = None                              # P + inf
         pts_p[j + 4] = pts_q[j + 4] = None               # inf + inf
-    G = ctx.g1
-    F = ctx.fp
+    F = G.F
+    p = ctx.fp.modulus
 
     def rescale(P):
-        lam = F.encode([rng.randrange(1, F.modulus) for _ in range(lanes)])
+        lam = [rng.randrange(1, p) for _ in range(lanes)]
+        if G.is_fp2:
+            lam = [(rng.randrange(p), v) for v in lam]
+        lam = F.encode(lam)
         x, y, z = F.mul_many([(P["x"], lam), (P["y"], lam), (P["z"], lam)])
         return {"x": x, "y": y, "z": z}
 
     return (rescale(G.encode_points(pts_p)), rescale(G.encode_points(pts_q)),
             pts_p, pts_q, og)
+
+
+def g1_inputs(ctx, lanes, rng):
+    from kzg_tpu_torch.refmodel.model import G1
+    return point_inputs(ctx, ctx.g1, G1(ctx.cp), 48, lanes, rng)
+
+
+def g2_inputs(ctx, lanes, rng):
+    from kzg_tpu_torch.refmodel.model import G2
+    return point_inputs(ctx, ctx.g2, G2(ctx.cp), 16, lanes, rng)
+
+
+def same_points(G, A, B, what, name, errs):
+    """Exact equality of two point batches as canonical affine points;
+    returns the packed array."""
+    pa, pb = G.affine_packed(A), G.affine_packed(B)
+    err = (pa - pb).abs().max().item() if pa.numel() else 0
+    errs[name] = max(errs[name], err)
+    check(err == 0, f"{what}: kernel != plain (max {err})")
+    return pa
+
+
+def fresh_points(G, A, what):
+    """Kernel output coordinates: exact 16-bit limbs, each component
+    < 1.1 p (first 64 lanes by value)."""
+    from kzg_tpu_torch.fields.mont import limbs_to_ints
+    p = G.F.base.modulus if G.is_fp2 else G.F.modulus
+    for k in ("x", "y", "z"):
+        check(int(A[k].max()) <= 0xFFFF, f"{what}: limbs above 16 bits")
+        comps = [A[k][0], A[k][1]] if G.is_fp2 else [A[k]]
+        for c in comps:
+            v = max(limbs_to_ints(c.reshape(c.shape[0], -1)[:, :64]))
+            check(v < p * 11 // 10, f"{what}: value >= 1.1p")
 
 
 # ----------------------------------------------------------------------
@@ -211,16 +261,17 @@ def phase_build():
         for ln in cuda.build_log(name).splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[build] {name}: {ln.strip()}")
-    line("build", t0, f"nvcc sm_90a built {sorted(secs)} in parallel "
-         f"({max(secs.values()) if secs else 0.0:.1f}s); card: {card}")
+    line("build", t0, "nvcc sm_90a built in parallel, seconds to each "
+         f"finish: { {k: round(v, 1) for k, v in secs.items()} }; card: "
+         f"{card}")
     return card
 
 
 def phase_kernels(dev, errs):
     """Each kernel against its plain version on the same card tensors."""
     from kzg_tpu_torch.context import get_context
-    from kzg_tpu_torch.fields.mont import limbs_to_ints
     from kzg_tpu_torch.ops import cuda
+    from kzg_tpu_torch.ops.msm import MSMEngine
     ctx = get_context("BN254", dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rng = random.Random(SEED)
@@ -253,49 +304,64 @@ def phase_kernels(dev, errs):
          f"values, 128 lanes vs python ints) at {K1_LANES} lanes, Fp and Fr, "
          "lazy inputs up to 2^22 limbs")
 
-    # K2 / K3 ------------------------------------------------------------
-    t0 = time.time()
-    G = ctx.g1
+    # K2 / K3 and K4 / K5 ------------------------------------------------
     lanes = K23_LANES
-    P, Q, pts_p, pts_q, og = g1_inputs(ctx, lanes, rng)
-    sample = rng.sample(range(lanes), 16) + list(range(8))
-
-    def same(A, B, what, name):
-        pa, pb = G.affine_packed(A), G.affine_packed(B)
-        err = (pa - pb).abs().max().item()
-        errs[name] = max(errs[name], err)
-        check(err == 0, f"{what}: kernel != plain (max {err})")
-        return pa
-
-    def fresh(A, what):
-        for k in ("x", "y", "z"):
-            check(int(A[k].max()) <= 0xFFFF, f"{what}: limbs above 16 bits")
-            v = max(limbs_to_ints(A[k][:, :64]))
-            check(v < G.F.modulus * 11 // 10, f"{what}: value >= 1.1p")
-
-    k = cuda.g1_add(G, P, Q)
-    fresh(k, "K2")
-    got = G.unpack_affine(same(k, G._add_plain(P, Q), "K2 add", "g1_add"))
-    for i in sample:
-        check(got[i] == og.add(pts_p[i], pts_q[i]), f"K2 lane {i} vs oracle")
-    mask = torch.rand(lanes, generator=gen, device=dev) < 0.3
-    k = cuda.g1_add(G, P, Q, mask)
-    fresh(k, "K2 reset")
-    same(k, G.select(mask, Q, G._add_plain(P, Q)), "K2 reset mask", "g1_add")
-    for times in (1, 8):
-        k = cuda.g1_dbl(G, P, times)
-        fresh(k, "K3")
-        ref = P
-        for _ in range(times):
-            ref = G._dbl_plain(ref)
-        got = G.unpack_affine(same(k, ref, f"K3 times={times}", "g1_dbl"))
+    for G, inputs, add, dbl, kadd, kdbl in (
+            (ctx.g1, g1_inputs, cuda.g1_add, cuda.g1_dbl, "g1_add", "g1_dbl"),
+            (ctx.g2, g2_inputs, cuda.g2_add, cuda.g2_dbl, "g2_add", "g2_dbl")):
+        t0 = time.time()
+        P, Q, pts_p, pts_q, og = inputs(ctx, lanes, rng)
+        sample = rng.sample(range(lanes), 16) + list(range(8))
+        k = add(G, P, Q)
+        fresh_points(G, k, kadd)
+        got = G.unpack_affine(same_points(G, k, G._add_plain(P, Q),
+                                          f"{kadd}", kadd, errs))
         for i in sample:
-            check(got[i] == og.mul(1 << times, pts_p[i]),
-                  f"K3 times={times} lane {i} vs oracle")
-    line("kernels", t0, f"K2 g1_add (with/without reset mask) and K3 g1_dbl "
-         f"(times 1, 8) == plain as canonical affine points over {lanes} "
-         "lanes incl. infinity/doubling/negation; outputs exact 16-bit, "
-         "< 1.1p; 24 lanes vs oracle")
+            check(got[i] == og.add(pts_p[i], pts_q[i]),
+                  f"{kadd} lane {i} vs oracle")
+        mask = torch.rand(lanes, generator=gen, device=dev) < 0.3
+        k = add(G, P, Q, mask)
+        fresh_points(G, k, f"{kadd} reset")
+        same_points(G, k, G.select(mask, Q, G._add_plain(P, Q)),
+                    f"{kadd} reset mask", kadd, errs)
+        for times in (1, 8):
+            k = dbl(G, P, times)
+            fresh_points(G, k, kdbl)
+            ref = P
+            for _ in range(times):
+                ref = G._dbl_plain(ref)
+            got = G.unpack_affine(same_points(G, k, ref,
+                                              f"{kdbl} times={times}", kdbl,
+                                              errs))
+            for i in sample:
+                check(got[i] == og.mul(1 << times, pts_p[i]),
+                      f"{kdbl} times={times} lane {i} vs oracle")
+        line("kernels", t0, f"{kadd} (with/without reset mask) and {kdbl} "
+             f"(times 1, 8) == plain as canonical affine points over {lanes} "
+             "lanes incl. infinity/doubling/negation; outputs exact 16-bit, "
+             "< 1.1p; 24 lanes vs oracle")
+
+        # K6 on the same group: aR, bL = P, Q; aL, bR a second pair
+        t0 = time.time()
+        name = "merge_combine_g2" if G.is_fp2 else "merge_combine_g1"
+        aL, bR, _, _, _ = inputs(ctx, lanes, rng)
+        masks = [torch.rand(lanes, generator=gen, device=dev) < 0.5
+                 for _ in range(3)]
+        eng = MSMEngine(G, ctx.fr, ctx.cp.r, strategy="merge")
+        k = cuda.merge_combine(G, aL, P, Q, bR, *masks)
+        ref = eng._combine_plain(aL, P, Q, bR, *masks)
+        for a, b, what in zip(k, ref, ("mid", "newL", "newR")):
+            same_points(G, a, b, f"{name} {what}", name, errs)
+        fresh_points(G, k[0], f"{name} mid")
+        fuse, asing, bsing = masks
+        for out, src, sel in ((k[1], aL, asing & fuse),
+                              (k[2], bR, bsing & fuse)):
+            for c in ("x", "y", "z"):
+                check(torch.equal(out[c][..., ~sel], src[c][..., ~sel]),
+                      f"{name}: a kept lane's limbs changed")
+        line("kernels", t0, f"{name} == plain (MSMEngine._combine_plain) as "
+             f"canonical affine points over {lanes} lanes with random masks; "
+             "kept lanes' limbs unchanged, mid exact 16-bit, < 1.1p")
 
 
 def phase_golden(dev):
@@ -363,8 +429,9 @@ def phase_main(dev, card):
     check(refuted, "main-path one-bit refutation is false")
     launches = cuda.counts()
     shapes = {k: dict(v.shapes) for k, v in cuda.KERNELS.items()}
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} not launched on the main path")
+    for name in MAIN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} not launched on the main "
+              "path")
     line("main", t_all, f"setup({SETUP_TERMS}) {setup_ms:.0f} ms incl. "
          f"self-check, from_blob(deg {DEGREE}) {blob_ms:.0f} ms; verify true, "
          f"refutation false; launches {launches}")
@@ -386,6 +453,74 @@ def phase_main(dev, card):
          f"{commit_ms:.1f} ms, proof cold {proof_cold:.1f} / warm "
          f"{proof_ms:.1f} ms, verify cold {verify_cold:.1f} / warm "
          f"{verify_ms:.1f} ms (median of {WARM_RUNS})")
+    return launches, shapes, (ts, p, c)
+
+
+def phase_msm(card, main_state):
+    """The merge strategy's path: msm over arbitrary bases (Horner over the
+    windows) on the main phase's setup points and polynomial. The counts
+    are read around the merge msm calls alone (cold and warm runs); the
+    references and decodes come after."""
+    from kzg_tpu_torch.ops import cuda
+    from kzg_tpu_torch.ops.msm import MSMEngine
+    from kzg_tpu_torch.protocol.api import _ctx
+    ts, p, c = main_state
+    pc = _ctx()
+    ctx = pc.ctx
+    r = ctx.cp.r
+    n = MSM_POINTS
+    sraw = pc.fr_raw(p.device_coeffs(pc))
+    check(sraw.shape[-1] == n, f"msm: {sraw.shape[-1]} scalars, not {n}")
+    t_all = time.time()
+
+    def first(P, m):
+        return {k: v[..., :m] for k, v in P.items()}
+
+    def affine(G, P):
+        return G.decode_points({k: v[..., None] for k, v in P.items()})[0]
+
+    groups = (("g1", ctx.g1, ts._g1_points_dev()),
+              ("g2", ctx.g2, ts._g2_points_dev()))
+    res, outs = {}, {}
+    cuda.reset_counts()
+    for grp, G, pts in groups:
+        eng = MSMEngine(G, ctx.fr, r, strategy="merge")
+        P = first(pts, n)
+        before = cuda.counts()
+        outs[grp], cold, warm = host_ms(lambda: eng.msm(sraw, P), WARM_RUNS)
+        after = cuda.counts()
+        res[grp] = {"points": n, "cold_ms": cold, "warm_median_ms": warm,
+                    "launches_per_call": {
+                        k: (after[k] - before[k]) // (WARM_RUNS + 1)
+                        for k in after}}
+    launches = cuda.counts()
+    shapes = {k: dict(v.shapes) for k, v in cuda.KERNELS.items()}
+    for name in MSM_KERNELS:
+        check(launches[name] > 0, f"kernel {name} not launched on the msm "
+              "path")
+    check(affine(ctx.g1, outs["g1"]) == c.curve_point,
+          f"msm g1 merge over {n} points != the commitment")
+    want2 = affine(ctx.g2, ctx.msm_g2.msm_shifted(
+        sraw, first(ts._shifted2(), n)))
+    check(affine(ctx.g2, outs["g2"]) == want2 and want2 is not None,
+          f"msm g2 merge over {n} points != chunked msm_shifted")
+    m = MSM_SCAN_POINTS
+    want = affine(ctx.g1, ctx.msm_g1.msm_shifted(
+        sraw[..., :m], first(ts._shifted1(), m)))
+    for strategy in ("log", "scan"):
+        eng = MSMEngine(ctx.g1, ctx.fr, r, strategy=strategy)
+        out, cold, _ = host_ms(
+            lambda: eng.msm(sraw[..., :m], first(ts._g1_points_dev(), m)), 0)
+        check(affine(ctx.g1, out) == want,
+              f"msm g1 {strategy} over {m} points != chunked msm_shifted")
+        res[f"g1_{strategy}"] = {"points": m, "cold_ms": cold}
+    print(json.dumps({"msm": {"card": card, "warm_runs": WARM_RUNS, **res}}),
+          flush=True)
+    line("msm", t_all, f"merge msm over {n} points: G1 == commitment (cold "
+         f"{res['g1']['cold_ms']:.1f} / warm {res['g1']['warm_median_ms']:.1f}"
+         f" ms), G2 == chunked (cold {res['g2']['cold_ms']:.1f} / warm "
+         f"{res['g2']['warm_median_ms']:.1f} ms); log and scan over {m} "
+         f"points == chunked; launches {launches}")
     return launches, shapes
 
 
@@ -420,7 +555,8 @@ def profile_ops(ops, top=6):
 
 
 def heaviest(shapes):
-    """The main path's shape that carries the most lanes for a kernel."""
+    """The shape that carries the most lanes for a kernel over its paths'
+    runs."""
     def work(item):
         key, n = item
         lanes = key[0] * key[1] if isinstance(key, tuple) else key
@@ -428,15 +564,32 @@ def heaviest(shapes):
     return max(shapes.items(), key=work)[0]
 
 
-def phase_kernel_line(dev, launches, shapes, errs):
+def tiled(batch, lanes):
+    """A point batch (last axis B lanes) repeated along its lanes up to
+    `lanes` lanes (the inputs of a wide timing, made from a narrow batch)."""
+    reps = -(-lanes // batch["x"].shape[-1])
+    return {k: v.repeat((1,) * (v.ndim - 1) + (reps,))[..., :lanes]
+            .contiguous() for k, v in batch.items()}
+
+
+def phase_kernel_line(dev, paths, errs):
+    """paths: {path: (launches, shapes)} of the main and msm runs."""
     from kzg_tpu_torch.context import get_context
     from kzg_tpu_torch.ops import cuda
+    from kzg_tpu_torch.ops.msm import MSMEngine
     t0 = time.time()
     ctx = get_context("BN254", dev)
-    F, G = ctx.fp, ctx.g1
+    F, G, G2 = ctx.fp, ctx.g1, ctx.g2
+    L = F.L
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rng = random.Random(SEED + 1)
     out = []
+    shapes = {}
+    for _, shp in paths.values():
+        for name, d in shp.items():
+            for key, n in d.items():
+                shapes.setdefault(name, {})
+                shapes[name][key] = shapes[name].get(key, 0) + n
 
     def bound(nbytes, ops):
         tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
@@ -453,42 +606,76 @@ def phase_kernel_line(dev, launches, shapes, errs):
         ms = kernel_ms(kernel_fn)
         plain = event_ms(plain_fn, iters=3)
         b, by = bound(nbytes, ops)
+        by_path = {path: lc[name] for path, (lc, _) in paths.items()}
         out.append({"name": name, "route": "cuda", "source": k.source,
-                    "replaces": k.replaces, "launches": launches[name],
+                    "replaces": k.replaces,
+                    "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                     "bound_ms": b, "bound_by": by, "library_ms": None,
                     "shape": shape, "event_ms": event_ms(kernel_fn)})
 
+    def packed_all(G):
+        def canon(pts):
+            return torch.cat([G.affine_packed(P) for P in pts], dim=-1)
+        return canon
+
     lanes = heaviest(shapes["mont_mul"])
     a, b = lazy_limbs(F, lanes, gen), lazy_limbs(F, lanes, gen)
     entry("mont_mul", lambda: cuda.mont_mul(F, a, b),
-          lambda: F._mul_plain(a, b), F.canon, 3 * F.L * 8 * lanes,
+          lambda: F._mul_plain(a, b), F.canon, 3 * L * 8 * lanes,
           2 * MACS_PER_MUL * lanes, {"lanes": lanes})
 
-    lanes = heaviest(shapes["g1_add"])
-    P, Q, _, _, _ = g1_inputs(ctx, lanes, rng)
-    entry("g1_add", lambda: cuda.g1_add(G, P, Q),
-          lambda: G._add_plain(P, Q), G.affine_packed, 9 * F.L * 8 * lanes,
-          15 * 2 * MACS_PER_MUL * lanes, {"lanes": lanes})
+    # G1 products per op: add 15 (6 + 6 + 3 re-reductions), doubling 9;
+    # G2 products per op in base-field products: add 48 (14 Fp2 products
+    # of 3 + 6 re-reductions), doubling 27 (9 Fp2 products)
+    for grp, Gc, inputs, words, add_muls, dbl_muls, fresh_muls in (
+            ("g1", G, g1_inputs, L, 15, 9, 3),
+            ("g2", G2, g2_inputs, 2 * L, 48, 27, 6)):
+        add, dbl = f"{grp}_add", f"{grp}_dbl"
+        kadd, kdbl = getattr(cuda, add), getattr(cuda, dbl)
+        base_p, base_q, _, _, _ = inputs(ctx, K23_LANES, rng)
+        lanes = heaviest(shapes[add])
+        P, Q = tiled(base_p, lanes), tiled(base_q, lanes)
+        entry(add, lambda: kadd(Gc, P, Q), lambda: Gc._add_plain(P, Q),
+              Gc.affine_packed, 9 * words * 8 * lanes,
+              add_muls * 2 * MACS_PER_MUL * lanes, {"lanes": lanes})
 
-    lanes, times = heaviest(shapes["g1_dbl"])
-    P, _, _, _, _ = g1_inputs(ctx, lanes, rng)
+        lanes, times = heaviest(shapes[dbl])
+        P = tiled(base_p, lanes)
 
-    def chain():
-        R = P
-        for _ in range(times):
-            R = G._dbl_plain(R)
-        return R
+        def chain():
+            R = P
+            for _ in range(times):
+                R = Gc._dbl_plain(R)
+            return R
 
-    entry("g1_dbl", lambda: cuda.g1_dbl(G, P, times), chain, G.affine_packed,
-          6 * F.L * 8 * lanes, (9 * times + 3) * 2 * MACS_PER_MUL * lanes,
-          {"lanes": lanes, "times": times})
+        entry(dbl, lambda: kdbl(Gc, P, times), chain, Gc.affine_packed,
+              6 * words * 8 * lanes,
+              (dbl_muls * times + fresh_muls) * 2 * MACS_PER_MUL * lanes,
+              {"lanes": lanes, "times": times})
+
+        name = f"merge_combine_{grp}"
+        lanes = heaviest(shapes[name])
+        aR, bL = tiled(base_p, lanes), tiled(base_q, lanes)
+        aL, bR = tiled(base_q, lanes), tiled(base_p, lanes)
+        aL = {k: v.roll(3, dims=-1).contiguous() for k, v in aL.items()}
+        bR = {k: v.roll(5, dims=-1).contiguous() for k, v in bR.items()}
+        masks = [torch.rand(lanes, generator=gen, device=dev) < 0.5
+                 for _ in range(3)]
+        eng = MSMEngine(Gc, ctx.fr, ctx.cp.r, strategy="merge")
+        entry(name,
+              lambda: cuda.merge_combine(Gc, aL, aR, bL, bR, *masks),
+              lambda: eng._combine_plain(aL, aR, bL, bR, *masks),
+              packed_all(Gc), (7 * 3 * words * 8 + 3) * lanes,
+              add_muls * 2 * MACS_PER_MUL * lanes, {"lanes": lanes})
     print(json.dumps({"kernels": out}), flush=True)
-    line("kernels", t0, "each kernel == its plain version at the main "
-         "path's heaviest shape; ms = device time per launch (CUDA events, "
+    line("kernels", t0, "each kernel == its plain version at the heaviest "
+         "shape its path gave it; ms = device time per launch (CUDA events, "
          "launches queued behind a spin kernel), event_ms and plain_ms = "
          "CUDA events around back-to-back calls (host gaps included; plain "
-         "= the PyTorch version on the same tensors)")
+         "= the PyTorch version on the same tensors); launches = the main "
+         "and msm paths' runs")
 
 
 def main():
@@ -505,11 +692,13 @@ def main():
     torch.cuda.set_device(dev)
     t_start = time.time()
     card = phase_build()
-    errs = {"mont_mul": 0, "g1_add": 0, "g1_dbl": 0}
+    errs = dict.fromkeys(MAIN_KERNELS + MSM_KERNELS, 0)
     phase_kernels(dev, errs)
     phase_golden(dev)
-    launches, shapes = phase_main(dev, card)
-    phase_kernel_line(dev, launches, shapes, errs)
+    launches, shapes, state = phase_main(dev, card)
+    paths = {"main": (launches, shapes),
+             "msm": phase_msm(card, state)}
+    phase_kernel_line(dev, paths, errs)
     check("jax" not in sys.modules and not any(
         m == "kzg_tpu" or m.startswith("kzg_tpu.") for m in sys.modules),
         "no JAX and nothing of the JAX package imported")

@@ -8,10 +8,10 @@ the complete formulas of Renes–Costello–Batina (eprint 2015/1060, Algorithms
 7 and 9 for j-invariant 0), correct for all inputs — equal points,
 negatives, infinity — with no per-lane case analysis.
 
-For G1 on the card, ``add``/``add_f`` launch kernel K2 and ``dbl``/``dbl_f``
-launch kernel K3 (ops.cuda); on the CPU they run ``_add_plain`` /
-``_dbl_plain``, the same formulas over ``Field.mul``, which the kernels are
-held against. G2 runs the plain formulas on every device (products by K1).
+On the card, ``add``/``add_f`` launch kernel K2 (G1) or K4 (G2) and
+``dbl``/``dbl_f`` launch kernel K3 (G1) or K5 (G2) (ops.cuda); on the CPU
+they run ``_add_plain`` / ``_dbl_plain``, the same formulas over
+``Field.mul`` / ``Fp2.mul``, which the kernels are held against.
 """
 
 from __future__ import annotations
@@ -50,10 +50,8 @@ class Curve:
         return tuple(coord.shape[2:] if self.is_fp2 else coord.shape[1:])
 
     def _kernel_device(self, P):
-        """True when this G1 op runs on the card (its kernel); False for
-        the plain version on the CPU; raises for other devices."""
-        if self.is_fp2:
-            return False
+        """True when this op runs on the card (its kernel); False for the
+        plain version on the CPU; raises for other devices."""
         dev = P["x"].device.type
         if dev == "cuda":
             return True
@@ -99,9 +97,11 @@ class Curve:
     def add(self, P, Q, reset=None):
         """Complete add; with a bool `reset` mask (batch shape) the lanes
         where it is set return Q instead: select(reset, Q, P + Q), the
-        running-sum step of the chunked bucket scan. K2 for G1 on the card."""
+        running-sum step of the chunked bucket scan. K2 (G1) or K4 (G2) on
+        the card."""
         if self._kernel_device(P):
-            return cuda.g1_add(self, P, Q, reset)
+            add = cuda.g2_add if self.is_fp2 else cuda.g1_add
+            return add(self, P, Q, reset)
         out = self._add_plain(P, Q)
         if reset is not None:
             out = self.select(reset, Q, out)
@@ -138,9 +138,11 @@ class Curve:
         return self.dbl_f(P, 1)
 
     def dbl_f(self, P, times: int = 1):
-        """`times` chained doublings; one K3 launch for G1 on the card."""
-        if self._kernel_device(P):
-            return cuda.g1_dbl(self, P, times)
+        """`times` chained doublings; one K3 (G1) or K5 (G2) launch on the
+        card (times = 0 returns P, as the plain loop does)."""
+        if times > 0 and self._kernel_device(P):
+            dbl = cuda.g2_dbl if self.is_fp2 else cuda.g1_dbl
+            return dbl(self, P, times)
         for _ in range(times):
             P = self._dbl_plain(P)
         return P

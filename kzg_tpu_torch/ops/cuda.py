@@ -2,13 +2,18 @@
 
 Counterpart of kzg_tpu/ops/fuse.py, the JAX package's one Pallas tiler:
 where the tiler traced a pointwise function into one VMEM-resident TPU
-kernel, each of its call sites on the main path is here a kernel written by
-hand for Hopper (sm_90a):
+kernel, each of its call sites is here a kernel written by hand for Hopper
+(sm_90a):
 
-  K1 ``mont_mul`` (csrc/mont_mul.cu) — Montgomery multiply (T1);
-  K2 ``g1_add``   (csrc/g1_ops.cu)   — G1 complete add with reset mask
-                                       (T2, T4, T6, T7);
-  K3 ``g1_dbl``   (csrc/g1_ops.cu)   — chain of G1 doublings (T3).
+  K1 ``mont_mul``         (csrc/mont_mul.cu)  — Montgomery multiply (T1);
+  K2 ``g1_add``           (csrc/g1_ops.cu)    — G1 complete add with reset
+                                                mask (T2, T4, T6, T7);
+  K3 ``g1_dbl``           (csrc/g1_ops.cu)    — chain of G1 doublings (T3);
+  K4 ``g2_add``           (csrc/g2_ops.cu)    — G2 complete add with reset
+                                                mask (T2, T4, T6, T7);
+  K5 ``g2_dbl``           (csrc/g2_ops.cu)    — chain of G2 doublings (T3);
+  K6 ``merge_combine_g1`` / ``merge_combine_g2`` (csrc/msm_merge.cu) — the
+                          merge strategy's per-level combine (T5).
 
 Each source compiles at first use with nvcc into a shared library with a
 plain C interface under ``build/kzg_tpu_torch/`` at the root of the
@@ -20,8 +25,9 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on torch's current stream, raises if
 the launch returned a CUDA error, and adds one to its kernel's ``launches``
 count. The plain PyTorch versions the kernels are held against live beside
-their callers: ``Field._mul_plain`` (fields/mont.py) and
-``Curve._add_plain`` / ``Curve._dbl_plain`` (groups/ec.py).
+their callers: ``Field._mul_plain`` (fields/mont.py), ``Curve._add_plain`` /
+``Curve._dbl_plain`` (groups/ec.py, G1 and G2) and
+``MSMEngine._combine_plain`` (ops/msm.py).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -43,8 +50,9 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kzg_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = {"mont_mul": "mont_mul.cu", "g1_ops": "g1_ops.cu"}
-HEADERS = ["mont.cuh"]
+SOURCES = {"mont_mul": "mont_mul.cu", "g1_ops": "g1_ops.cu",
+           "g2_ops": "g2_ops.cu", "msm_merge": "msm_merge.cu"}
+HEADERS = ["mont.cuh", "fp2.cuh", "g1.cuh", "g2.cuh"]
 
 
 class Kernel:
@@ -75,6 +83,19 @@ KERNELS = {
     "g1_dbl": Kernel(
         "g1_dbl", "g1_ops", "kzg_tpu_torch/csrc/g1_ops.cu",
         "kzg_tpu/groups/ec.py:185 (T3 Curve.dbl_f)"),
+    "g2_add": Kernel(
+        "g2_add", "g2_ops", "kzg_tpu_torch/csrc/g2_ops.cu",
+        "kzg_tpu/groups/ec.py:178 (T2 Curve.add_f, G2); kzg_tpu/ops/msm.py:"
+        "271 (T4 chunked step); kzg_tpu/ops/msm.py:512,535 (T6/T7)"),
+    "g2_dbl": Kernel(
+        "g2_dbl", "g2_ops", "kzg_tpu_torch/csrc/g2_ops.cu",
+        "kzg_tpu/groups/ec.py:185 (T3 Curve.dbl_f, G2)"),
+    "merge_combine_g1": Kernel(
+        "merge_combine_g1", "msm_merge", "kzg_tpu_torch/csrc/msm_merge.cu",
+        "kzg_tpu/ops/msm.py:187 (T5 merge combine, G1)"),
+    "merge_combine_g2": Kernel(
+        "merge_combine_g2", "msm_merge", "kzg_tpu_torch/csrc/msm_merge.cu",
+        "kzg_tpu/ops/msm.py:187 (T5 merge combine, G2)"),
 }
 
 
@@ -138,14 +159,17 @@ def build(names=None):
                        log)
     secs = {}
     failed = []
-    for name, (proc, tmp, so, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        secs[name] = time.time() - t0
-        if rc != 0:
-            failed.append(name)
-            continue
-        os.replace(tmp, so)
+    while len(secs) < len(procs):          # each source's own finish time
+        for name, (proc, tmp, so, log) in procs.items():
+            if name in secs or proc.poll() is None:
+                continue
+            log.close()
+            secs[name] = time.time() - t0
+            if proc.returncode != 0:
+                failed.append(name)
+            else:
+                os.replace(tmp, so)
+        time.sleep(0.1)
     if failed:
         logs = "\n".join((BUILD_DIR / f"{n}.log").read_text()[-4000:]
                          for n in failed)
@@ -164,6 +188,10 @@ _ARGTYPES = {
     "kzg_mont_mul": [_VP, _VP, _VP, _I64, _VP, _INT, _VP],
     "kzg_g1_add": [_VP] * 8 + [_I64, _VP, _INT, _VP],
     "kzg_g1_dbl": [_VP] * 4 + [_I64, _INT, _VP, _INT, _VP],
+    "kzg_g2_add": [_VP] * 8 + [_I64, _VP, _INT, _VP],
+    "kzg_g2_dbl": [_VP] * 4 + [_I64, _INT, _VP, _INT, _VP],
+    "kzg_merge_combine_g1": [_VP] * 5 + [_I64, _VP, _INT, _VP],
+    "kzg_merge_combine_g2": [_VP] * 5 + [_I64, _VP, _INT, _VP],
 }
 
 
@@ -191,13 +219,16 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _require(t, L, what):
+def _require(t, lead, what):
+    """A kernel operand: int64, contiguous, on the card, with the leading
+    (component and limb) axes `lead`."""
     if t.device.type != "cuda":
         raise RuntimeError(f"{what}: tensor on {t.device}, kernel needs cuda")
     if t.dtype != torch.int64:
         raise TypeError(f"{what}: dtype {t.dtype}, kernel takes int64 limbs")
-    if t.shape[0] != L:
-        raise ValueError(f"{what}: leading (limb) axis {t.shape[0]} != {L}")
+    if tuple(t.shape[:len(lead)]) != tuple(lead):
+        raise ValueError(f"{what}: leading (limb) axes "
+                         f"{tuple(t.shape[:len(lead)])} != {tuple(lead)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
 
@@ -221,25 +252,49 @@ def _mod_consts(F):
 
 def _g1_consts(G):
     """K1's constants, then lift16, lift32, 3b as a small integer and 9b in
-    Montgomery form — the layout of g1_ops.cu g1_from_host. The kernels
+    Montgomery form — the layout of g1.cuh g1_from_host. The kernels
     follow Curve._add_plain / _dbl_plain on the branches those take when
     3b <= 14 (a lazy small multiple) and 9b > 15 (a full product), as for
     BN254; other curves raise."""
-    c = getattr(G, "_k23_consts", None)
+    F = G.F
+    p = F.modulus
+    b3 = G._b3_int
+    if not (b3 <= 14 and 3 * b3 > 15):
+        raise ValueError(f"{G.name}: the G1 kernels take 3b <= 14 and "
+                         f"9b > 15, not 3b = {b3}")
+    m9 = 3 * b3 * F.params.mont_r % p
+    return (list(F.params.limbs) + list(F.params.one_limbs) + [F.n0]
+            + F.lift_limbs(16)[0] + F.lift_limbs(32)[0] + [b3]
+            + [(m9 >> (16 * i)) & 0xFFFF for i in range(F.L)])
+
+
+def _g2_consts(G):
+    """K1's constants of the base field, then the exact 16-bit limbs of 2p
+    and 4p (the slacks of Fp2.mul's output subtractions), of 16p and 32p
+    (the add's and the doubling's exact subtractions) and the twist's 3b'
+    in Montgomery form, c0 then c1 — the layout of g2.cuh g2_from_host. The
+    kernels take Fp2 with qnr = -1, as BN254's; other curves raise."""
+    F2 = G.F
+    B = F2.base
+    if not F2.qnr_is_m1:
+        raise ValueError(f"{G.name}: the G2 kernels take qnr = -1")
+
+    def kp(k):
+        v = k * B.modulus
+        return [(v >> (16 * i)) & 0xFFFF for i in range(B.L)]
+
+    b3 = G._b3.cpu().tolist()                    # (2, L) Montgomery limbs
+    return (list(B.params.limbs) + list(B.params.one_limbs) + [B.n0]
+            + kp(2) + kp(4) + kp(16) + kp(32) + b3[0] + b3[1])
+
+
+def _consts(G):
+    """The constant block of G's point kernels, built once per curve."""
+    c = getattr(G, "_kernel_consts", None)
     if c is None:
-        F = G.F
-        p = F.modulus
-        b3 = G._b3_int
-        if not (b3 <= 14 and 3 * b3 > 15):
-            raise ValueError(f"{G.name}: K2/K3 take 3b <= 14 and 9b > 15, "
-                             f"not 3b = {b3}")
-        m9 = 3 * b3 * F.params.mont_r % p
-        vals = (list(F.params.limbs) + list(F.params.one_limbs) + [F.n0]
-                + F.lift_limbs(16)[0] + F.lift_limbs(32)[0] + [b3]
-                + [(m9 >> (16 * i)) & 0xFFFF for i in range(F.L)])
-        c = _u32(vals)
-        G._k23_consts = c
-    return c
+        c = _u32(_g2_consts(G) if G.is_fp2 else _g1_consts(G))
+        G._kernel_consts = c
+    return ctypes.cast(c, _VP)
 
 
 # ----------------------------------------------------------------------
@@ -253,8 +308,8 @@ def mont_mul(F, a, b):
         raise ValueError(f"mont_mul: shapes {tuple(a.shape)} != "
                          f"{tuple(b.shape)}")
     a, b = a.contiguous(), b.contiguous()
-    _require(a, F.L, "mont_mul")
-    _require(b, F.L, "mont_mul")
+    _require(a, (F.L,), "mont_mul")
+    _require(b, (F.L,), "mont_mul")
     if b.device != a.device:
         raise ValueError("mont_mul: operands on different devices")
     out = torch.empty_like(a)
@@ -269,65 +324,119 @@ def mont_mul(F, a, b):
     return out
 
 
-def _coords(P, L, what):
+def _lead(G):
+    """Leading axes of one coordinate of G: (L,) for G1, (2, L) for G2."""
+    return (2, G.F.base.L) if G.is_fp2 else (G.F.L,)
+
+
+def _points(G, pts, what):
+    """The x, y, z coordinates of the point dicts `pts`, broadcast over one
+    batch shape the way the field ops broadcast (batch axes after the limb
+    axes), contiguous and checked. Returns (coordinates, batch, lanes)."""
+    lead = _lead(G)
+    n = len(lead)
+    coords = [P[k] for P in pts for k in ("x", "y", "z")]
+    batch = tuple(torch.broadcast_shapes(*[t.shape[n:] for t in coords]))
     out = []
-    for k in ("x", "y", "z"):
-        t = P[k].contiguous()
-        _require(t, L, what)
+    for t in coords:
+        t = t.reshape(t.shape[:n] + (1,) * (len(batch) + n - t.ndim)
+                      + t.shape[n:])
+        t = t.expand(t.shape[:n] + batch).contiguous()
+        _require(t, lead, what)
         out.append(t)
-    return out
+    return out, batch, math.prod(batch)
+
+
+def _mask(m, batch, dev, what):
+    """A bool mask of the batch shape as contiguous uint8 on the card."""
+    m = torch.as_tensor(m, device=dev)
+    if m.dtype != torch.bool:
+        raise TypeError(f"{what}: masks must be bool, not {m.dtype}")
+    return m.expand(batch).contiguous().view(torch.uint8)
 
 
 def _unpack(out, batch):
-    return {k: out[i].reshape((out.shape[1],) + batch)
+    """(3, *lead, lanes) kernel output -> point dict of (*lead, *batch)."""
+    return {k: out[i].reshape(out.shape[1:-1] + batch)
             for i, k in enumerate(("x", "y", "z"))}
+
+
+def _point_add(name, G, P, Q, reset):
+    c, batch, lanes = _points(G, (P, Q), name)
+    dev = c[0].device
+    out = torch.empty((3,) + _lead(G) + (lanes,), dtype=torch.int64,
+                      device=dev)
+    if lanes == 0:
+        return _unpack(out, batch)
+    rptr = None
+    if reset is not None:
+        reset = _mask(reset, batch, dev, name)
+        rptr = reset.data_ptr()
+    kern = KERNELS[name]
+    fn = getattr(_lib(kern.lib), "kzg_" + name)
+    _check(fn(*[t.data_ptr() for t in c], rptr, out.data_ptr(), lanes,
+              _consts(G), _lead(G)[-1], _stream()), name)
+    kern.count(lanes)
+    return _unpack(out, batch)
+
+
+def _point_dbl(name, G, P, times):
+    if times < 1:
+        raise ValueError(f"{name}: times must be >= 1")
+    c, batch, lanes = _points(G, (P,), name)
+    out = torch.empty((3,) + _lead(G) + (lanes,), dtype=torch.int64,
+                      device=c[0].device)
+    if lanes == 0:
+        return _unpack(out, batch)
+    kern = KERNELS[name]
+    fn = getattr(_lib(kern.lib), "kzg_" + name)
+    _check(fn(*[t.data_ptr() for t in c], out.data_ptr(), lanes, int(times),
+              _consts(G), _lead(G)[-1], _stream()), name)
+    kern.count((lanes, int(times)))
+    return _unpack(out, batch)
 
 
 def g1_add(G, P, Q, reset=None):
     """K2: out = reset ? Q : P + Q per lane (complete add), G1 point dicts
     of (L, *batch) int64 coordinates on the card; reset is a bool tensor of
     the batch shape or None."""
-    L = G.F.L
-    xs = torch.broadcast_tensors(P["x"], P["y"], P["z"],
-                                 Q["x"], Q["y"], Q["z"])
-    batch = tuple(xs[0].shape[1:])
-    Pc = _coords(dict(zip("xyz", xs[:3])), L, "g1_add")
-    Qc = _coords(dict(zip("xyz", xs[3:])), L, "g1_add")
-    lanes = Pc[0].numel() // L
-    out = torch.empty((3, L, lanes), dtype=torch.int64, device=Pc[0].device)
-    if lanes == 0:
-        return _unpack(out, batch)
-    rptr = None
-    if reset is not None:
-        reset = torch.as_tensor(reset, device=Pc[0].device)
-        if reset.dtype != torch.bool:
-            raise TypeError("g1_add: reset mask must be bool")
-        reset = reset.expand(batch).contiguous().view(torch.uint8)
-        rptr = reset.data_ptr()
-    lib = _lib("g1_ops")
-    _check(lib.kzg_g1_add(*[t.data_ptr() for t in Pc + Qc], rptr,
-                          out.data_ptr(), lanes,
-                          ctypes.cast(_g1_consts(G), _VP), L, _stream()),
-           "g1_add")
-    KERNELS["g1_add"].count(lanes)
-    return _unpack(out, batch)
+    return _point_add("g1_add", G, P, Q, reset)
 
 
 def g1_dbl(G, P, times):
     """K3: 2^times P per lane, G1 point dict on the card."""
-    L = G.F.L
-    if times < 1:
-        raise ValueError("g1_dbl: times must be >= 1")
-    xs = torch.broadcast_tensors(P["x"], P["y"], P["z"])
-    batch = tuple(xs[0].shape[1:])
-    Pc = _coords(dict(zip("xyz", xs)), L, "g1_dbl")
-    lanes = Pc[0].numel() // L
-    out = torch.empty((3, L, lanes), dtype=torch.int64, device=Pc[0].device)
-    if lanes == 0:
-        return _unpack(out, batch)
-    lib = _lib("g1_ops")
-    _check(lib.kzg_g1_dbl(*[t.data_ptr() for t in Pc], out.data_ptr(),
-                          lanes, int(times), ctypes.cast(_g1_consts(G), _VP),
-                          L, _stream()), "g1_dbl")
-    KERNELS["g1_dbl"].count((lanes, int(times)))
-    return _unpack(out, batch)
+    return _point_dbl("g1_dbl", G, P, times)
+
+
+def g2_add(G, P, Q, reset=None):
+    """K4: out = reset ? Q : P + Q per lane (complete add), G2 point dicts
+    of (2, L, *batch) int64 coordinates on the card; reset is a bool tensor
+    of the batch shape or None."""
+    return _point_add("g2_add", G, P, Q, reset)
+
+
+def g2_dbl(G, P, times):
+    """K5: 2^times P per lane, G2 point dict on the card."""
+    return _point_dbl("g2_dbl", G, P, times)
+
+
+def merge_combine(G, aL, aR, bL, bR, fuse, asing, bsing):
+    """K6 (G1 or G2 instance by the curve): one merge level's combine,
+    mid = aR + bL, newL = (asing & fuse) ? mid : aL, newR = (bsing & fuse)
+    ? mid : bR per lane. Point dicts and bool masks on the card over one
+    batch; returns (mid, newL, newR)."""
+    name = "merge_combine_g2" if G.is_fp2 else "merge_combine_g1"
+    c, batch, lanes = _points(G, (aL, aR, bL, bR), name)
+    dev = c[0].device
+    out = torch.empty((3, 3) + _lead(G) + (lanes,), dtype=torch.int64,
+                      device=dev)
+    if lanes > 0:
+        masks = [_mask(m, batch, dev, name) for m in (fuse, asing, bsing)]
+        ptrs = (ctypes.c_uint64 * 12)(*[t.data_ptr() for t in c])
+        kern = KERNELS[name]
+        fn = getattr(_lib(kern.lib), "kzg_" + name)
+        _check(fn(ctypes.cast(ptrs, _VP), *[m.data_ptr() for m in masks],
+                  out.data_ptr(), lanes, _consts(G), _lead(G)[-1],
+                  _stream()), name)
+        kern.count(lanes)
+    return tuple(_unpack(out[j], batch) for j in range(3))

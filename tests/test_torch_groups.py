@@ -1,14 +1,19 @@
 """The port's group law (kzg_tpu_torch.groups.ec) against the JAX package's
 (kzg_tpu.groups.ec) on the same numpy limb arrays.
 
-On the CPU, G1 add/add_f/dbl_f run the plain versions (Curve._add_plain,
-Curve._dbl_plain) that kernels K2 and K3 are held against on the card; G2
-runs the same formulas over Fp2. The JAX functions run eagerly (a jit of the
-G2 doubling chain compiles for tens of seconds on the CPU). Both results are
-compared, exactly, as canonical packed affine arrays (the port's
+On the CPU, add/add_f/dbl_f run the plain versions (Curve._add_plain,
+Curve._dbl_plain) that kernels K2 and K3 (G1) and K4 and K5 (G2) are held
+against on the card, and the merge strategy's combine runs
+MSMEngine._combine_plain, the plain version of K6. The JAX functions run
+eagerly (a jit of the G2 doubling chain compiles for tens of seconds on the
+CPU); kzg_tpu's add of the first batches is computed once per group and
+shared by the add and the combine tests. Both results are compared,
+exactly, as canonical packed affine arrays (the port's
 Curve.affine_packed); the batches mix random points under a random
 projective rescaling with infinity, P + P and P + (-P) lanes.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -16,6 +21,7 @@ import torch
 
 from kzg_tpu.context import make_g1, make_g2
 from kzg_tpu_torch.context import get_context
+from kzg_tpu_torch.ops.msm import MSMEngine
 from kzg_tpu_torch.refmodel.model import G1, G2
 
 torch.set_num_threads(2)
@@ -24,6 +30,7 @@ SEED = 20261017
 N = 12
 
 
+@functools.lru_cache(maxsize=None)
 def _batches(group, seed):
     """Two point batches (numpy limb arrays, shared by both packages) with
     infinity, doubling and negation lanes, and their oracle points."""
@@ -65,6 +72,14 @@ def _jax(P):
     return {k: v.astype(np.uint32) for k, v in P.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_add(group):
+    """kzg_tpu's add of the SEED batches (numpy limb arrays)."""
+    ctx, J, og, P, Q, pts, qts = _batches(group, SEED)
+    jJ = make_g1(ctx.cp) if group == "g1" else make_g2(ctx.cp)
+    return {k: np.asarray(v) for k, v in jJ.add(_jax(P), _jax(Q)).items()}
+
+
 def _packed(J, P):
     """Canonical packed affine array of a torch or a JAX point batch, by the
     port's Curve.affine_packed (exact: to_affine, from_mont, canon)."""
@@ -77,9 +92,8 @@ def _packed(J, P):
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_add_matches_jax(group):
     ctx, J, og, P, Q, pts, qts = _batches(group, SEED)
-    jJ = make_g1(ctx.cp) if group == "g1" else make_g2(ctx.cp)
     got = _packed(J, J.add(_torch(P), _torch(Q)))
-    assert np.array_equal(got, _packed(J, jJ.add(_jax(P), _jax(Q))))
+    assert np.array_equal(got, _packed(J, _jax_add(group)))
     assert J.unpack_affine(got) == [og.add(a, b) for a, b in zip(pts, qts)]
     # add_f is the same operation (one K2 launch for G1 on the card)
     assert np.array_equal(_packed(J, J.add_f(_torch(P), _torch(Q))), got)
@@ -118,6 +132,31 @@ def test_dbl_chain_matches_jax(group, times):
     assert J.unpack_affine(got) == [og.mul(1 << times, a) for a in pts]
     if times == 1:
         assert np.array_equal(_packed(J, J.dbl(_torch(P))), got)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_merge_combine_plain_matches_jax(group):
+    """MSMEngine._combine_plain (the plain version of K6) against the merge
+    combine of kzg_tpu/ops/msm.py:187-191 built from kzg_tpu's add and
+    select on the same arrays: mid = aR + bL, newL = select(asing & fuse,
+    mid, aL), newR = select(bsing & fuse, mid, bR); every mask pattern."""
+    ctx, J, og, P, Q, pts, qts = _batches(group, SEED)
+    _, _, _, A, B, _, _ = _batches(group, SEED + 1)          # aL, bR
+    jJ = make_g1(ctx.cp) if group == "g1" else make_g2(ctx.cp)
+    lanes = np.arange(N)
+    fuse, asing, bsing = lanes % 2 == 0, lanes % 4 < 2, lanes % 8 < 4
+    eng = MSMEngine(J, ctx.fr, ctx.cp.r, strategy="merge")
+    got = eng._combine(_torch(A), _torch(P), _torch(Q), _torch(B),
+                       *[torch.from_numpy(m) for m in (fuse, asing, bsing)])
+    mid = _jax_add(group)                                    # aR + bL
+    want = (mid, jJ.select(asing & fuse, mid, _jax(A)),
+            jJ.select(bsing & fuse, mid, _jax(B)))
+
+    def joined(pts):          # the three outputs as one batch (one inverse)
+        return {k: np.concatenate([np.asarray(p[k]).astype(np.int64)
+                                   for p in pts], axis=-1) for k in pts[0]}
+
+    assert np.array_equal(_packed(J, joined(got)), _packed(J, joined(want)))
 
 
 def test_neg_eq_and_affine_roundtrip():

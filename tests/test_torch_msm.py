@@ -1,12 +1,16 @@
-"""The port's MSM (kzg_tpu_torch.ops.msm, the chunked strategy) against the
-JAX package's (kzg_tpu.ops.msm) and the exact python oracle.
+"""The port's MSM (kzg_tpu_torch.ops.msm: the chunked strategy of
+msm_shifted, the merge, log and scan strategies and msm over arbitrary
+bases) against the JAX package's (kzg_tpu.ops.msm) and the exact python
+oracle.
 
-On the CPU the G1 adds and doubling chains run the plain versions that
-kernels K2 and K3 are held against on the card. Scalars include a zero and a
-run of equal scalars, so that every window has digit runs longer than a
-chunk and the boundary-carry scan and its correction are exercised; the port
-also runs with other chunk lengths, which must not change the result.
-Points are compared exactly, as canonical packed affine arrays.
+On the CPU the G1/G2 adds, doubling chains and merge combines run the plain
+versions that kernels K2-K6 are held against on the card. Scalars include a
+zero and a run of equal scalars, so that every window has digit runs longer
+than a chunk and the boundary-carry scan and its correction are exercised;
+the port also runs with other chunk lengths, which must not change the
+result. Points are compared exactly, as canonical packed affine arrays. The
+JAX functions run under jax.jit and only the pieces compared (never the
+whole JAX msm, whose jit takes tens of seconds on the CPU).
 """
 
 import jax
@@ -24,6 +28,11 @@ from kzg_tpu_torch.refmodel.model import G1, G2
 torch.set_num_threads(2)
 
 SEED = 20261018
+
+
+def _t(P):
+    return {k: torch.from_numpy(np.asarray(v).astype(np.int64))
+            for k, v in P.items()}
 
 
 def _inputs(n, group="g1"):
@@ -53,38 +62,38 @@ def _inputs(n, group="g1"):
 
 @pytest.fixture(scope="module")
 def jax_msm():
-    """kzg_tpu's precompute_shifted + msm_shifted (its default, chunked
-    strategy) on the 16-point inputs."""
+    """The port's precompute_shifted of the 16-point inputs (computed once
+    for every chunk length) and kzg_tpu's msm_shifted (its default, chunked
+    strategy) of the same window-shifted limb arrays."""
     n = 16
     ctx, pts, scalars, exp = _inputs(n)
+    sh = MSMEngine(ctx.g1, ctx.fr, ctx.cp.r).precompute_shifted(
+        ctx.g1.encode_points(pts))
     jctx = jax_context("BN254")
     eng = JMSMEngine(jctx.g1, jctx.fr, ctx.cp.r)
-    P = jctx.g1.encode_points(pts)
-    sh = jax.jit(eng.precompute_shifted)(P)
     sraw = ints_to_limbs(scalars, ctx.fr.L)
-    out = jax.jit(eng.msm_shifted)(sraw, sh)
-    return n, {k: np.asarray(v) for k, v in P.items()}, \
-        {k: np.asarray(v) for k, v in sh.items()}, \
-        {k: np.asarray(v) for k, v in out.items()}
-
-
-def _t(P):
-    return {k: torch.from_numpy(np.asarray(v).astype(np.int64))
-            for k, v in P.items()}
+    out = jax.jit(eng.msm_shifted)(
+        sraw, {k: v.numpy().astype(np.uint32) for k, v in sh.items()})
+    return n, sh, {k: np.asarray(v) for k, v in out.items()}
 
 
 @pytest.mark.parametrize("chunk_len", [None, 2, 8])
 def test_msm_shifted_matches_jax(jax_msm, chunk_len):
-    n, Pj, shj, outj = jax_msm
+    n, sh, outj = jax_msm
     ctx, pts, scalars, exp = _inputs(n)
     J = ctx.g1
+    og = G1(ctx.cp)
     eng = MSMEngine(J, ctx.fr, ctx.cp.r)
     eng.chunk_len = chunk_len
-    P = _t(Pj)                                   # the same limb arrays
-    sh = eng.precompute_shifted(P)
     assert sh["x"].shape == (ctx.fp.L, eng.W, n)
-    assert np.array_equal(J.affine_packed(sh).numpy(),
-                          J.affine_packed(_t(shj)).numpy())
+    if chunk_len is None:     # every window-shifted base 2^(8w) P_i
+        rows, row = [], list(pts)
+        for _ in range(eng.W):
+            rows.append(row)
+            for _ in range(8):
+                row = [og.add(P, P) for P in row]
+        assert J.decode_points({k: v.reshape(v.shape[:-2] + (-1,))
+                                for k, v in sh.items()}) == sum(rows, [])
     sraw = ctx.fr.raw(scalars)
     out = eng.msm_shifted(sraw, sh)
     got = J.affine_packed(out).numpy()
@@ -92,14 +101,23 @@ def test_msm_shifted_matches_jax(jax_msm, chunk_len):
     assert J.unpack_affine(got[:, None]) == [exp]
 
 
-def test_msm_shifted_padded_vs_oracle():
-    """n = 9 pads the last chunk with discard-digit infinity points."""
-    ctx, pts, scalars, exp = _inputs(9)
-    eng = MSMEngine(ctx.g1, ctx.fr, ctx.cp.r)
-    sh = eng.precompute_shifted(ctx.g1.encode_points(pts))
-    out = eng.msm_shifted(ctx.fr.raw(scalars), sh)
-    assert ctx.g1.decode_points({k: v[..., None] for k, v in out.items()}) \
-        == [exp]
+@pytest.fixture(scope="module")
+def chunked_11():
+    """The 11-point G1 inputs and the port's chunked msm_shifted of them."""
+    ctx, pts, scalars, exp = _inputs(11)
+    J = ctx.g1
+    eng = MSMEngine(J, ctx.fr, ctx.cp.r)
+    P = J.encode_points(pts)
+    out = eng.msm_shifted(ctx.fr.raw(scalars), eng.precompute_shifted(P))
+    return ctx, P, scalars, exp, \
+        J.affine_packed({k: v[..., None] for k, v in out.items()}).numpy()
+
+
+def test_msm_shifted_padded_vs_oracle(chunked_11):
+    """n = 11 (chunks of 4) pads the last chunk with a discard-digit
+    infinity point."""
+    ctx, P, scalars, exp, chunked = chunked_11
+    assert ctx.g1.unpack_affine(chunked) == [exp]
 
 
 def test_digits_and_bucket_sums():
@@ -137,5 +155,78 @@ def test_g2_msm_shifted_vs_oracle():
     eng = ctx.msm_g2
     sh = eng.precompute_shifted(ctx.g2.encode_points(pts))
     out = eng.msm_shifted(ctx.fr.raw(scalars), sh)
+    assert ctx.g2.decode_points({k: v[..., None] for k, v in out.items()}) \
+        == [exp]
+
+
+def test_bucket_sums_merge_matches_jax():
+    """The port's merge-strategy bucket sums (its per-level combine is
+    MSMEngine._combine_plain, the plain version of K6, on the CPU) against
+    kzg_tpu's MSMEngine(strategy='merge')._bucket_sums_merge under jax.jit,
+    on the same sorted numpy limb arrays: two windows of the 11-point inputs
+    (a zero scalar, a run of 7 equal digits), which both pad to 16; and
+    against the oracle's per-window sums of points by digit."""
+    n, W = 11, 2
+    ctx, pts, scalars, _ = _inputs(n)
+    J = ctx.g1
+    og = G1(ctx.cp)
+    eng = MSMEngine(J, ctx.fr, ctx.cp.r, strategy="merge")
+    d = eng.digits(ctx.fr.raw(scalars))[:W].numpy()
+    order = np.argsort(d, axis=-1, kind="stable")
+    d_sorted = np.take_along_axis(d, order, axis=-1)
+    P_sorted = {k: v.numpy()[:, order]                   # (L, W, n)
+                for k, v in J.encode_points(pts).items()}
+    jctx = jax_context("BN254")
+    jeng = JMSMEngine(jctx.g1, jctx.fr, ctx.cp.r, strategy="merge")
+    want = jax.jit(jeng._bucket_sums_merge)(
+        d_sorted.astype(np.uint32),
+        {k: v.astype(np.uint32) for k, v in P_sorted.items()})
+    got = eng._bucket_sums_merge(torch.from_numpy(d_sorted), _t(P_sorted))
+    assert got["x"].shape == (ctx.fp.L, W, 255)
+    got = J.affine_packed(got).numpy()
+    assert np.array_equal(got, J.affine_packed(_t(want)).numpy())
+    exp = []
+    for w in range(W):
+        for digit in range(1, 256):
+            acc = None
+            for s, pt in zip(scalars, pts):
+                if (s >> (8 * w)) & 0xFF == digit:
+                    acc = og.add(acc, pt)
+            exp.append(acc)
+    assert J.unpack_affine(got) == exp
+
+
+@pytest.mark.parametrize("strategy", ["merge", "log", "scan"])
+def test_msm_strategies_vs_oracle_and_chunked(chunked_11, strategy):
+    """msm over arbitrary bases (Horner over the windows) with each of the
+    other bucket strategies equals the oracle and the chunked msm_shifted."""
+    ctx, P, scalars, exp, chunked = chunked_11
+    J = ctx.g1
+    eng = MSMEngine(J, ctx.fr, ctx.cp.r, strategy=strategy)
+    out = eng.msm(ctx.fr.raw(scalars), P)
+    got = J.affine_packed({k: v[..., None] for k, v in out.items()}).numpy()
+    assert np.array_equal(got, chunked)
+    assert J.unpack_affine(got) == [exp]
+    with pytest.raises(ValueError):
+        MSMEngine(J, ctx.fr, ctx.cp.r, strategy="naive")
+
+
+def test_g2_msm_merge_vs_oracle():
+    """G2 msm over arbitrary bases with the merge strategy, over two
+    windows: 16-bit scalars and an engine whose order spans 16 bits (the
+    window count follows the order; chip_smoke.py runs all 32 windows on
+    the card)."""
+    ctx, pts, scalars, _ = _inputs(3, "g2")
+    og = G2(ctx.cp)
+    scalars = [s & 0xFFFF for s in scalars]
+    scalars[1] = scalars[2] & 0xFF00 | 0x17   # a shared high digit
+    exp = None
+    for k, P in zip(scalars, pts):
+        t = og.mul(k, P)
+        if t is not None:
+            exp = t if exp is None else og.add(exp, t)
+    eng = MSMEngine(ctx.g2, ctx.fr, (1 << 16) - 1, strategy="merge")
+    assert eng.W == 2
+    out = eng.msm(ctx.fr.raw(scalars), ctx.g2.encode_points(pts))
     assert ctx.g2.decode_points({k: v[..., None] for k, v in out.items()}) \
         == [exp]

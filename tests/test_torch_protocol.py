@@ -90,11 +90,12 @@ def test_from_secret_exports_golden_file(golden, tmp_path):
 
 
 def test_setup_from_arrays_commits_like_kzg_tpu(golden):
-    """kzg_tpu's own affine_packed arrays of a 24-term setup, carried across
-    by convert.setup_from_arrays, hold the same points and commit to the
-    point of kzg_tpu's exact reference (refmodel KZGOracle). That the port's
-    MSM equals kzg_tpu's MSM engine is held in tests/test_torch_msm.py."""
-    n_setup, n = 24, 11
+    """kzg_tpu's own affine_packed arrays of a 12-term setup (the least that
+    takes an 11-coefficient polynomial), carried across by
+    convert.setup_from_arrays, hold the same points and commit to the point
+    of kzg_tpu's exact reference (refmodel KZGOracle). That the port's MSM
+    equals kzg_tpu's MSM engine is held in tests/test_torch_msm.py."""
+    n_setup, n = 12, 11
     secret = 0xC0FFEE_1234_5678_9ABC_DEF0
     g1s, g2s = KZGOracle("BN254").setup(n_setup, secret)
     jctx = jax_context("BN254")
@@ -153,8 +154,9 @@ def test_error_semantics(golden):
     for cs in (1, 2, 4):
         q = kzg.poly.from_blob(kzg.blob.from_bytes(data, 0, len(data), cs))
         assert q.degree < len(data) // cs
-        assert (ts.create_proof(q, 4, 8, cs).curve_point
-                == ts.create_proof(q, 4 // cs, 8 // cs).curve_point)
+        got = ts.create_proof(q, 4, 8, cs).curve_point
+        if cs > 1:            # with cs = 1 both calls take the same arguments
+            assert got == ts.create_proof(q, 4 // cs, 8 // cs).curve_point
     # the reference quirk: data is read from the START of the buffer
     b0 = kzg.blob.from_bytes(data, 0, 8, 4)
     assert kzg.blob.from_bytes(data, 4, 8, 4).get_data() == \
