@@ -12,13 +12,14 @@ mismatch or exception exits non-zero before the result line):
   2. kernels — K1 (Montgomery multiply) at 4096, 131072 and 811008 lanes on
                Fp and Fr with lazy input limbs; K2/K4 (G1/G2 complete add,
                with and without reset mask) and K3/K5 (G1/G2 doubling chain,
-               times 1 and 8) over 8192 lanes with infinity, doubling and
-               negation cases; K6 (merge combine, G1 and G2) over 8192 lanes
-               with random masks: each held against its plain PyTorch
-               version on the same card tensors (exact equality of limbs or
-               of canonical affine points), outputs checked fresh (exact
-               16-bit limbs, < 1.1p) and sampled lanes against python-int
-               arithmetic;
+               times 1 and 8) over 8200 lanes with infinity, doubling and
+               negation cases, K4/K5 again at the ragged widths of their
+               lane teams (1, 5, 31, 32, 33, 127, 8193 lanes); K6 (merge
+               combine, G1 and G2) over 8200 lanes with random masks: each
+               held against its plain PyTorch version on the same card
+               tensors (exact equality of limbs or of canonical affine
+               points), outputs checked fresh (exact 16-bit limbs, < 1.1p)
+               and sampled lanes against python-int arithmetic;
   3. golden  — reproduces the BN254 golden bytes of
                tests/fixtures/golden/ from the 48-term setup file, verifies
                the whole-message proof and refutes a changed byte;
@@ -42,7 +43,10 @@ mismatch or exception exits non-zero before the result line):
                each kernel's launches on the main and msm paths, its
                largest error against the plain version, its device time per
                launch, the plain version's time per call, and the bound at
-               that shape.
+               that shape; before it the "sweep" line: K4 and K5 held
+               against their plain versions and timed at every distinct
+               shape the two paths launched, with each path's device time
+               in the kernel (path_ms = sum of launches x ms).
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -64,7 +68,8 @@ SETUP_TERMS = 5000
 DEGREE = 4096
 WARM_RUNS = 3
 K1_LANES = (4096, 131072, 811008)        # scripts/tpu_checks.py's sizes
-K23_LANES = 8192
+K23_LANES = 8200
+EDGE_LANES = (1, 5, 31, 32, 33, 127, 8193)   # K4/K5 ragged team edges
 MSM_POINTS = DEGREE + 1                  # the merge msm of the msm phase
 MSM_SCAN_POINTS = 256                    # its log and scan strategies
 MAIN_KERNELS = ("mont_mul", "g1_add", "g1_dbl", "g2_add", "g2_dbl")
@@ -340,6 +345,8 @@ def phase_kernels(dev, errs):
              f"(times 1, 8) == plain as canonical affine points over {lanes} "
              "lanes incl. infinity/doubling/negation; outputs exact 16-bit, "
              "< 1.1p; 24 lanes vs oracle")
+        if G.is_fp2:
+            edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs)
 
         # K6 on the same group: aR, bL = P, Q; aL, bR a second pair
         t0 = time.time()
@@ -362,6 +369,47 @@ def phase_kernels(dev, errs):
         line("kernels", t0, f"{name} == plain (MSMEngine._combine_plain) as "
              f"canonical affine points over {lanes} lanes with random masks; "
              "kept lanes' limbs unchanged, mid exact 16-bit, < 1.1p")
+
+
+def edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs):
+    """K4 and K5 at the ragged widths of their lane teams: the first n lanes
+    of the K23_LANES batch (lane 0 doubles, lane 1 negates, lanes 2-4 hold
+    infinity), with and without the reset mask, times 1 and 8; exact
+    against the plain version, outputs fresh, the first 8 lanes against the
+    oracle."""
+    from kzg_tpu_torch.ops import cuda
+    t0 = time.time()
+    for n in EDGE_LANES:
+        Pn = {k: v[..., :n].contiguous() for k, v in P.items()}
+        Qn = {k: v[..., :n].contiguous() for k, v in Q.items()}
+        what = f"g2_add lanes={n}"
+        k = cuda.g2_add(G, Pn, Qn)
+        fresh_points(G, k, what)
+        got = G.unpack_affine(same_points(G, k, G._add_plain(Pn, Qn), what,
+                                          "g2_add", errs))
+        for i in range(min(n, 8)):
+            check(got[i] == og.add(pts_p[i], pts_q[i]), f"{what} lane {i} "
+                  "vs oracle")
+        mask = torch.rand(n, generator=gen, device=P["x"].device) < 0.5
+        k = cuda.g2_add(G, Pn, Qn, mask)
+        fresh_points(G, k, f"{what} reset")
+        same_points(G, k, G.select(mask, Qn, G._add_plain(Pn, Qn)),
+                    f"{what} reset mask", "g2_add", errs)
+        for times in (1, 8):
+            what = f"g2_dbl lanes={n} times={times}"
+            k = cuda.g2_dbl(G, Pn, times)
+            fresh_points(G, k, what)
+            ref = Pn
+            for _ in range(times):
+                ref = G._dbl_plain(ref)
+            got = G.unpack_affine(same_points(G, k, ref, what, "g2_dbl",
+                                              errs))
+            for i in range(min(n, 8)):
+                check(got[i] == og.mul(1 << times, pts_p[i]),
+                      f"{what} lane {i} vs oracle")
+    line("kernels", t0, f"g2_add (with/without reset mask) and g2_dbl (times "
+         f"1, 8) == plain at edge widths {EDGE_LANES} lanes; outputs exact "
+         "16-bit, < 1.1p; first 8 lanes vs oracle")
 
 
 def phase_golden(dev):
@@ -572,6 +620,66 @@ def tiled(batch, lanes):
             .contiguous() for k, v in batch.items()}
 
 
+def point_work(words, coords, muls, lanes):
+    """(bytes, operations) of a point kernel over `lanes` lanes: `coords`
+    coordinates of `words` int64 limbs moved and `muls` base Montgomery
+    products done per lane."""
+    return coords * words * 8 * lanes, muls * 2 * MACS_PER_MUL * lanes
+
+
+def sweep(paths, base2, bound, errs):
+    """K4 and K5 at every distinct shape of the main and msm paths: each
+    held against its plain version (exact canonical affine points), then its
+    device time per launch (kernel_ms) and bound; per path, path_ms = sum
+    over shapes of the path's launches x ms."""
+    from kzg_tpu_torch.ops import cuda
+    G, base_p, base_q = base2
+    res = {}
+    for name in ("g2_add", "g2_dbl"):
+        keys = sorted({key for _, shp in paths.values()
+                       for key in shp.get(name, {})},
+                      key=lambda k: k if isinstance(k, tuple) else (k,))
+        rows, path_ms = [], dict.fromkeys(paths, 0.0)
+        for key in keys:
+            lanes, times = key if isinstance(key, tuple) else (key, None)
+            P, Q = tiled(base_p, lanes), tiled(base_q, lanes)
+            if times is None:
+                def kern():
+                    return cuda.g2_add(G, P, Q)
+
+                def plain():
+                    return G._add_plain(P, Q)
+            else:
+                def kern():
+                    return cuda.g2_dbl(G, P, times)
+
+                def plain():
+                    R = P
+                    for _ in range(times):
+                        R = G._dbl_plain(R)
+                    return R
+            a, b = G.affine_packed(kern()), G.affine_packed(plain())
+            err = (a - b).abs().max().item()
+            errs[name] = max(errs[name], err)
+            check(err == 0, f"{name} at {key}: kernel != plain (max {err})")
+            ms = kernel_ms(kern)
+            by_path = {path: shp.get(name, {}).get(key, 0)
+                       for path, (_, shp) in paths.items()}
+            for path, n in by_path.items():
+                path_ms[path] += n * ms
+            # an add moves 9 Fp2 coordinates and does 48 base products (14
+            # Fp2 products of 3, 6 re-reductions); a chain moves 6 and does
+            # 27 per doubling and 6 to re-reduce
+            b, by = bound(*point_work(2 * 17, 9 if times is None else 6,
+                                      48 if times is None
+                                      else 27 * times + 6, lanes))
+            rows.append({"lanes": lanes, "times": times,
+                         "launches_by_path": by_path, "ms": ms,
+                         "bound_ms": b, "bound_by": by, "max_abs_err": err})
+        res[name] = {"shapes": rows, "path_ms": path_ms}
+    return res
+
+
 def phase_kernel_line(dev, paths, errs):
     """paths: {path: (launches, shapes)} of the main and msm runs."""
     from kzg_tpu_torch.context import get_context
@@ -635,11 +743,13 @@ def phase_kernel_line(dev, paths, errs):
         add, dbl = f"{grp}_add", f"{grp}_dbl"
         kadd, kdbl = getattr(cuda, add), getattr(cuda, dbl)
         base_p, base_q, _, _, _ = inputs(ctx, K23_LANES, rng)
+        if Gc.is_fp2:
+            base2 = (Gc, base_p, base_q)
         lanes = heaviest(shapes[add])
         P, Q = tiled(base_p, lanes), tiled(base_q, lanes)
         entry(add, lambda: kadd(Gc, P, Q), lambda: Gc._add_plain(P, Q),
-              Gc.affine_packed, 9 * words * 8 * lanes,
-              add_muls * 2 * MACS_PER_MUL * lanes, {"lanes": lanes})
+              Gc.affine_packed, *point_work(words, 9, add_muls, lanes),
+              {"lanes": lanes})
 
         lanes, times = heaviest(shapes[dbl])
         P = tiled(base_p, lanes)
@@ -651,8 +761,7 @@ def phase_kernel_line(dev, paths, errs):
             return R
 
         entry(dbl, lambda: kdbl(Gc, P, times), chain, Gc.affine_packed,
-              6 * words * 8 * lanes,
-              (dbl_muls * times + fresh_muls) * 2 * MACS_PER_MUL * lanes,
+              *point_work(words, 6, dbl_muls * times + fresh_muls, lanes),
               {"lanes": lanes, "times": times})
 
         name = f"merge_combine_{grp}"
@@ -669,6 +778,8 @@ def phase_kernel_line(dev, paths, errs):
               lambda: eng._combine_plain(aL, aR, bL, bR, *masks),
               packed_all(Gc), (7 * 3 * words * 8 + 3) * lanes,
               add_muls * 2 * MACS_PER_MUL * lanes, {"lanes": lanes})
+    print(json.dumps({"sweep": sweep(paths, base2, bound, errs)}),
+          flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     line("kernels", t0, "each kernel == its plain version at the heaviest "
          "shape its path gave it; ms = device time per launch (CUDA events, "

@@ -10,14 +10,16 @@
 // Karatsuba with three base products: c0 = v0 - v1 + 2 p, c1 = t - v0 - v1
 // + 4 p (components <= 5.6 p, exact 16-bit limbs), as Fp2.mul.
 //
-// Register budget: an Fp2 value is 34 words, so a G2 point operation
-// cannot live in one thread's registers. The base product is one
-// __noinline__ function (the one unrolled 17 x 17 product of a module that
-// uses it): its operands are passed by address and live in the thread's
-// local memory (an L1-cached stack frame), and the rest of a point
-// operation spills there too. That bounds the registers and nvcc's time (a
-// G2 source compiles in seconds); the Fp2 product around the base product
-// is inlined, which measured faster than keeping it out of line as well.
+// Register budget of a G2 point operation in ONE thread (K6's combine,
+// msm_merge.cu, through g2.cuh): an Fp2 value is 34 words, so the point
+// operation cannot live in registers. The base product is one __noinline__
+// function (the one unrolled 17 x 17 product of the module): its operands
+// are passed by address and live in the thread's local memory (a stack
+// frame of 2.3-3.8 KB, cached in L1 as far as it holds), and the rest of
+// the point operation spills there too. That bounds registers and nvcc's
+// time; the local-memory traffic and the one thread's serial chain of 48
+// products per add bound its speed. K4/K5 left this design for lane teams
+// (g2_team.cuh), which share fe_sub_exact and the constants with it.
 #pragma once
 
 #include "mont.cuh"

@@ -1,5 +1,6 @@
-// G2 point device functions (BN254's twist over Fp2, a = 0), shared by
-// K4/K5 (g2_ops.cu) and the G2 instance of K6 (msm_merge.cu).
+// G2 point device functions (BN254's twist over Fp2, a = 0) of one
+// thread per lane, used by the G2 instance of K6 (msm_merge.cu), and the G2
+// constant block that K4/K5 (g2_ops.cu, g2_team.cuh) read as well.
 //
 // The dataflow is that of kzg_tpu_torch/groups/ec.py Curve._add_plain /
 // Curve._dbl_plain over Fp2 (kzg_tpu/groups/ec.py Curve.add / Curve.dbl):
@@ -135,7 +136,7 @@ __device__ __forceinline__ void g2_consts_to_shared(G2Consts& dst,
 
 // Host array layout (kzg_tpu_torch/ops/cuda.py _g2_consts): p, R mod p, n0,
 // 2p, 4p, 16p, 32p (exact 16-bit limbs), 3b' c0, 3b' c1 (Montgomery) —
-// 8 L + 1 uint32.
+// 8 L + 1 uint32, followed by K4/K5's schedule table (g2_team.cuh).
 inline G2Consts g2_from_host(const uint32_t* h) {
   G2Consts C;
   C.F.M = mod_from_host(h);

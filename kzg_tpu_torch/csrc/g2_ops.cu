@@ -7,79 +7,94 @@
 //   K4 <- T2 kzg_tpu/groups/ec.py Curve.add_f, T4 the chunked bucket step
 //         kzg_tpu/ops/msm.py:268-274 select(s, p, add(c, p)) (the reset
 //         mask), T6/T7 the weighted-reduction adds msm.py:511-514,535-536 —
-//         on verify's G2 MSM and setup's G2 comb;
+//         on verify's G2 MSM, setup's G2 comb and the merge msm's Horner
+//         tail;
 //   K5 <- T3 kzg_tpu/groups/ec.py Curve.dbl_f(times), run by
 //         MSMEngine.precompute_shifted (times = 8) over the G2 setup points
-//         on the first verify.
+//         on the first verify, and by the merge msm's Horner tail.
 //
 // Bound on the card: an add reads 6 and writes 3 Fp2 coordinates (9 x 2 x
-// 17 int64 limbs, 2448 bytes per lane) and does 14 Fp2 products (42 base
-// products) plus 6 base products to re-reduce its outputs; a doubling
-// does 9 Fp2 products (27 base). At main-path widths (tens to a few
-// thousand lanes) the kernels are latency-bound, not byte- or
-// multiply-bound. Design (fp2.cuh): one thread per lane; the base product
-// is one __noinline__ function whose operands live in the thread's local
-// memory (L1-cached), so registers stay bounded and nvcc compiles one
-// unrolled base product; the constants sit in shared memory. Point
-// formulas: g2.cuh, shared with K6.
-#include "g2.cuh"
+// 17 int64 limbs, 2448 bytes per lane) and does 48 base Montgomery
+// products (14 Fp2 products of 3, 6 re-reductions); a doubling does 27.
+// The paths launch them mostly narrow (1 lane in the Horner tail, 32 in
+// setup's comb, tens to hundreds in verify's MSM, 5000 at most for the
+// chains), where one lane's serial chain of products sets the time: 48 per
+// add and 222 per chain of 8 when one thread owns a lane.
+//
+// Design (g2_team.cuh): each lane is owned by a team of T threads of one
+// warp (T and the warps per block come with the schedule table,
+// kzg_tpu_torch/ops/g2_team.py). The point, the constants and every
+// intermediate live in the block's shared memory; the formula runs as
+// levels of independent instructions spread over the team, each product
+// an inlined 17 x 17 Montgomery product on operands in registers. A lane's
+// chain falls to the product rounds of its schedule (g2_team.rounds: 7 per
+// add and 4 per doubling at T = 8), and no operand goes through a local
+// stack frame. Outputs are re-reduced: exact 16-bit limbs, each component
+// < 1.1 p. K6 (msm_merge.cu) keeps g2.cuh's one-thread add.
+#include "g2_team.cuh"
 
 namespace kzg {
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256)
 g2_add_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
               const int64_t* __restrict__ pz, const int64_t* __restrict__ qx,
               const int64_t* __restrict__ qy, const int64_t* __restrict__ qz,
               const uint8_t* __restrict__ reset, int64_t* __restrict__ out,
-              int64_t lanes, G2Consts Cp) {
-  __shared__ G2Consts C;
-  g2_consts_to_shared(C, Cp);
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  Pt2 Q, R;
-  pt2_load(Q, qx, qy, qz, lanes, i);
-  if (reset != nullptr && reset[i]) {
-    pt2_fresh(R, Q, C.F.M);             // segment start: restart at Q
-  } else {
-    Pt2 P;
-    pt2_load(P, px, py, pz, lanes, i);
-    g2_add(R, P, Q, C);
+              int64_t lanes, Mod M) {
+  TeamLane t;
+  if (!team_setup(t, lanes)) return;
+  const bool rst = reset != nullptr && reset[t.i];
+  for (int e = t.rank + (rst ? 6 : 0); e < 12; e += t.team) {
+    const int c = e >> 1;
+    const int64_t* src = c == 0 ? px : c == 1 ? py : c == 2 ? pz
+                       : c == 3 ? qx : c == 4 ? qy : qz;
+    team_load(src, e, (uint32_t)e, t, lanes);
   }
-  pt2_store(out, R, lanes, i);
+  __syncwarp(t.mask);
+  team_run(rst ? S_RESET : S_ADD, t, M);    // reset: Q re-reduced
+  team_store(out, rst ? O_RESET : O_ADD, t, lanes);
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256)
 g2_dbl_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
               const int64_t* __restrict__ pz, int64_t* __restrict__ out,
-              int64_t lanes, int times, G2Consts Cp) {
-  __shared__ G2Consts C;
-  g2_consts_to_shared(C, Cp);
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  Pt2 P;
-  pt2_load(P, px, py, pz, lanes, i);
-  for (int t = 0; t < times; ++t) g2_dbl(P, C);
-  Pt2 R;
-  pt2_fresh(R, P, C.F.M);
-  pt2_store(out, R, lanes, i);
+              int64_t lanes, int times, Mod M) {
+  TeamLane t;
+  if (!team_setup(t, lanes)) return;
+  for (int e = t.rank; e < 6; e += t.team) {
+    const int c = e >> 1;
+    team_load(c == 0 ? px : c == 1 ? py : pz, e, (uint32_t)e, t, lanes);
+  }
+  __syncwarp(t.mask);
+  for (int step = 0; step <= times; ++step)  // the doublings stay in slots
+    team_run(step < times ? S_DBL : S_FRESH, t, M);
+  team_store(out, O_FRESH, t, lanes);
 }
 
 }  // namespace kzg
 
 // P, Q coordinates: int64[2, n_limbs, lanes] contiguous on the card; reset:
-// uint8[lanes] or null; out: int64[3, 2, n_limbs, lanes]. out = reset ? Q :
-// P + Q per lane. Returns cudaGetLastError() after the launch.
+// uint8[lanes] or null; out: int64[3, 2, n_limbs, lanes]; consts: the G2
+// constants then the schedule table (ops/cuda.py _g2_consts). out = reset ?
+// Q : P + Q per lane. Returns cudaGetLastError() after the launch, or
+// BAD_LIMBS / BAD_TABLE / the error of the table's upload.
 extern "C" int kzg_g2_add(const int64_t* px, const int64_t* py,
                           const int64_t* pz, const int64_t* qx,
                           const int64_t* qy, const int64_t* qz,
                           const uint8_t* reset, int64_t* out, int64_t lanes,
                           const uint32_t* consts, int n_limbs, void* stream) {
   if (n_limbs != kzg::L) return kzg::BAD_LIMBS;
-  const kzg::G2Consts C = kzg::g2_from_host(consts);
-  const int threads = 128;
-  const int64_t blocks = (lanes + threads - 1) / threads;
-  kzg::g2_add_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      px, py, pz, qx, qy, qz, reset, out, lanes, C);
+  static size_t attr = 0;
+  size_t smem;
+  int threads, lpb;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int rc = kzg::team_prepare(consts, st, &smem, &threads, &lpb);
+  if (rc == 0)
+    rc = kzg::team_smem_attr((const void*)kzg::g2_add_kernel, smem, &attr);
+  if (rc != 0) return rc;
+  const int64_t blocks = (lanes + lpb - 1) / lpb;
+  kzg::g2_add_kernel<<<(unsigned)blocks, threads, smem, st>>>(
+      px, py, pz, qx, qy, qz, reset, out, lanes, kzg::mod_from_host(consts));
   return (int)cudaGetLastError();
 }
 
@@ -89,10 +104,16 @@ extern "C" int kzg_g2_dbl(const int64_t* px, const int64_t* py,
                           int times, const uint32_t* consts, int n_limbs,
                           void* stream) {
   if (n_limbs != kzg::L) return kzg::BAD_LIMBS;
-  const kzg::G2Consts C = kzg::g2_from_host(consts);
-  const int threads = 128;
-  const int64_t blocks = (lanes + threads - 1) / threads;
-  kzg::g2_dbl_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      px, py, pz, out, lanes, times, C);
+  static size_t attr = 0;
+  size_t smem;
+  int threads, lpb;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int rc = kzg::team_prepare(consts, st, &smem, &threads, &lpb);
+  if (rc == 0)
+    rc = kzg::team_smem_attr((const void*)kzg::g2_dbl_kernel, smem, &attr);
+  if (rc != 0) return rc;
+  const int64_t blocks = (lanes + lpb - 1) / lpb;
+  kzg::g2_dbl_kernel<<<(unsigned)blocks, threads, smem, st>>>(
+      px, py, pz, out, lanes, times, kzg::mod_from_host(consts));
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,219 @@
+// The lane-team executor of K4 (G2 complete add) and K5 (G2 doubling
+// chain): each lane of a batch is owned by a team of T threads inside one
+// warp, and the team runs the lane's formula as a schedule of levels, read
+// from a table that kzg_tpu_torch/ops/g2_team.py builds (its docstring
+// defines the instructions and the table's words).
+//
+// Shared memory of a block (dynamic, uint32 words):
+//   [0, 3L)        the constant slots: R mod p, the twist's 3b' c0 and c1;
+//   [3L, 8L)       the exact subtractions' slacks: 0, 2p, 4p, 16p, 32p;
+//   [8L, ...)      the lanes' slots, slot s limb k of lane j (in the block)
+//                  at 8L + (s L + k) lpb + j, lpb = lanes per block: the
+//                  teams of a warp touch neighbouring words.
+// The table sits in constant memory (uploaded by the C entry points when it
+// changes): in a level every team of a warp reads the same instruction
+// words for the same rank, so a warp's fetch is at most T distinct words.
+//
+// One instruction runs in one thread: its operands (sums of up to four
+// slots, times a small scale) are loaded from shared memory into
+// registers, and a product is the inlined mont_mul of mont.cuh (the form
+// K1 runs near its byte bound), so each kernel holds one unrolled 17 x 17
+// product. After each level the team meets at __syncwarp(team mask); a
+// team never waits on threads outside it, so a team past the batch's end
+// or a warp's spare threads may leave early.
+#pragma once
+
+#include <cstring>
+
+#include "g2.cuh"
+
+namespace kzg {
+
+constexpr int TEAM_WORDS = 768;          // capacity of the schedule table
+constexpr int TEAM_HDR = 31;             // its header (g2_team.py HDR)
+constexpr uint32_t CONST_SLOT = 240;     // slot ids >= this are constants
+constexpr int TEAM_CONST_WORDS = 8 * L;  // constant slots + slacks
+constexpr int BAD_TABLE = 1002;
+enum { T_MUL = 0, T_LAZY = 1, T_EXACT = 2 };
+enum { S_ADD = 0, S_RESET = 1, S_DBL = 2, S_FRESH = 3 };
+enum { O_ADD = 0, O_RESET = 1, O_FRESH = 2 };
+
+struct TeamImage {
+  uint32_t cst[TEAM_CONST_WORDS];
+  uint32_t tab[TEAM_WORDS];
+};
+
+__constant__ TeamImage c_team;
+
+extern __shared__ uint32_t team_sm[];
+
+struct TeamLane {
+  int team, rank, lpb, j;
+  unsigned mask;
+  int64_t i;                             // the lane in the batch
+};
+
+// Copy the constant slots to shared memory and place this thread; false
+// for a thread without a lane (a warp's spare threads, a team past the
+// end). Every thread of the block calls it before any leaves.
+__device__ __forceinline__ bool team_setup(TeamLane& t, int64_t lanes) {
+  for (int w = threadIdx.x; w < TEAM_CONST_WORDS; w += blockDim.x)
+    team_sm[w] = c_team.cst[w];
+  __syncthreads();
+  t.team = (int)c_team.tab[0];
+  const int per_warp = 32 / t.team;
+  const int wl = threadIdx.x & 31;
+  const int tw = wl / t.team;
+  if (tw >= per_warp) return false;
+  t.rank = wl - tw * t.team;
+  t.lpb = per_warp * (int)(blockDim.x >> 5);
+  t.j = (int)(threadIdx.x >> 5) * per_warp + tw;
+  t.i = (int64_t)blockIdx.x * t.lpb + t.j;
+  t.mask = (t.team == 32 ? 0xFFFFFFFFu : ((1u << t.team) - 1u))
+           << (tw * t.team);
+  return t.i < lanes;
+}
+
+__device__ __forceinline__ int slot_word(const TeamLane& t, uint32_t s,
+                                         int k) {
+  return TEAM_CONST_WORDS + ((int)s * L + k) * t.lpb + t.j;
+}
+
+// x = scale * (sum of n slots packed 8 bits each in `slots`), limbwise.
+__device__ __forceinline__ void team_sum(Fe& x, uint32_t n, uint32_t slots,
+                                         uint32_t scale, const TeamLane& t) {
+#pragma unroll
+  for (int k = 0; k < L; ++k) x.v[k] = 0;
+  for (uint32_t q = 0; q < n; ++q) {
+    const uint32_t s = (slots >> (8 * q)) & 0xFFu;
+    int base, stride;
+    if (s >= CONST_SLOT) {
+      base = (int)(s - CONST_SLOT) * L;
+      stride = 1;
+    } else {
+      base = slot_word(t, s, 0);
+      stride = t.lpb;
+    }
+#pragma unroll
+    for (int k = 0; k < L; ++k) x.v[k] += team_sm[base + k * stride];
+  }
+#pragma unroll
+  for (int k = 0; k < L; ++k) x.v[k] *= scale;
+}
+
+// One instruction: MUL, LAZY or EXACT (g2_team.py), result into its slot.
+__device__ __forceinline__ void team_exec(int at, const TeamLane& t,
+                                          const Mod& M) {
+  const uint32_t w0 = c_team.tab[at];
+  const uint32_t kind = w0 & 3u;
+  Fe a, o;
+  team_sum(a, (w0 >> 22) & 7u, c_team.tab[at + 1], (w0 >> 10) & 63u, t);
+  if (kind == T_LAZY) {
+    o = a;
+  } else {
+    Fe b;
+    team_sum(b, (w0 >> 25) & 7u, c_team.tab[at + 2], (w0 >> 16) & 63u, t);
+    if (kind == T_MUL) {
+      mont_mul(o, a, b, M);
+    } else {
+      uint32_t kp[L];
+      const int kb = 3 * L + (int)((w0 >> 28) & 7u) * L;
+#pragma unroll
+      for (int k = 0; k < L; ++k) kp[k] = team_sm[kb + k];
+      fe_sub_exact(o, a, b, kp);
+    }
+  }
+  const int d = slot_word(t, (w0 >> 2) & 0xFFu, 0);
+#pragma unroll
+  for (int k = 0; k < L; ++k) team_sm[d + k * t.lpb] = o.v[k];
+}
+
+// Run schedule `s`: each level's instructions r, r + T, ... on rank r,
+// then the team meets.
+__device__ __forceinline__ void team_run(int s, const TeamLane& t,
+                                         const Mod& M) {
+  const int lv0 = (int)c_team.tab[5 + 2 * s];
+  const int lv1 = (int)c_team.tab[6 + 2 * s];
+  const int ins = TEAM_HDR + (int)c_team.tab[3];
+  for (int l = lv0; l < lv1; ++l) {
+    const uint32_t w = c_team.tab[TEAM_HDR + l];
+    const int first = (int)(w & 0xFFFFu), count = (int)(w >> 16);
+    for (int q = t.rank; q < count; q += t.team)
+      team_exec(ins + 3 * (first + q), t, M);
+    __syncwarp(t.mask);
+  }
+}
+
+// Base element e (coordinate e / 2, component e % 2) of a point batch of
+// int64[2, L, lanes] coordinates into slot s.
+__device__ __forceinline__ void team_load(const int64_t* coord, int e,
+                                          uint32_t s, const TeamLane& t,
+                                          int64_t lanes) {
+  const int64_t* src = coord + (int64_t)(e & 1) * L * lanes + t.i;
+  const int d = slot_word(t, s, 0);
+#pragma unroll
+  for (int k = 0; k < L; ++k)
+    team_sm[d + k * t.lpb] = (uint32_t)src[(int64_t)k * lanes];
+}
+
+// The output slots of list `o` (O_ADD, O_RESET, O_FRESH) into out:
+// int64[3, 2, L, lanes], element e at e L lanes.
+__device__ __forceinline__ void team_store(int64_t* out, int o,
+                                           const TeamLane& t, int64_t lanes) {
+  for (int e = t.rank; e < 6; e += t.team) {
+    const int s = slot_word(t, c_team.tab[13 + 6 * o + e], 0);
+    int64_t* dst = out + (int64_t)e * L * lanes + t.i;
+#pragma unroll
+    for (int k = 0; k < L; ++k)
+      dst[(int64_t)k * lanes] = (int64_t)team_sm[s + k * t.lpb];
+  }
+}
+
+// Host side: the table behind the 8 L + 1 words of the G2 constants (the
+// layout of g2_team.py table()). Checks it, builds the constant image and
+// uploads it on `stream` when it differs from the last upload; returns 0,
+// BAD_TABLE or a CUDA error. *smem gets the block's dynamic shared memory,
+// *threads its threads, *lpb its lanes.
+inline int team_prepare(const uint32_t* consts, cudaStream_t stream,
+                        size_t* smem, int* threads, int* lpb) {
+  static TeamImage last;
+  static bool have = false;
+  const uint32_t* tab = consts + 8 * L + 1;
+  const uint32_t team = tab[0], warps = tab[1], slots = tab[2];
+  if (team < 1 || team > 32 || warps < 1 || warps > 8 ||
+      slots > CONST_SLOT)
+    return BAD_TABLE;
+  const uint32_t words = TEAM_HDR + tab[3] + 3 * tab[4];
+  if (words > (uint32_t)TEAM_WORDS) return BAD_TABLE;
+  TeamImage img = {};
+  const G2Consts C = g2_from_host(consts);
+  const uint32_t* rows[8] = {C.F.M.one, C.b3.c0.v, C.b3.c1.v, nullptr,
+                             C.F.kp2, C.F.kp4, C.kp16, C.kp32};
+  for (int r = 0; r < 8; ++r)
+    for (int k = 0; k < L; ++k) img.cst[r * L + k] = rows[r] ? rows[r][k] : 0;
+  for (uint32_t w = 0; w < words; ++w) img.tab[w] = tab[w];
+  *threads = 32 * (int)warps;
+  *lpb = (32 / (int)team) * (int)warps;
+  *smem = sizeof(uint32_t) *
+          (TEAM_CONST_WORDS + (size_t)slots * L * (size_t)(*lpb));
+  if (!have || memcmp(&img, &last, sizeof img) != 0) {
+    const cudaError_t e = cudaMemcpyToSymbolAsync(
+        c_team, &img, sizeof img, 0, cudaMemcpyHostToDevice, stream);
+    if (e != cudaSuccess) return (int)e;
+    last = img;
+    have = true;
+  }
+  return 0;
+}
+
+// Dynamic shared memory above 48 KB needs the kernel's attribute raised.
+inline int team_smem_attr(const void* kernel, size_t smem, size_t* set) {
+  if (smem <= 48 * 1024 || smem <= *set) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  *set = smem;
+  return 0;
+}
+
+}  // namespace kzg

@@ -12,6 +12,9 @@ kernel, each of its call sites is here a kernel written by hand for Hopper
   K4 ``g2_add``           (csrc/g2_ops.cu)    — G2 complete add with reset
                                                 mask (T2, T4, T6, T7);
   K5 ``g2_dbl``           (csrc/g2_ops.cu)    — chain of G2 doublings (T3);
+                          K4 and K5 run lane teams (csrc/g2_team.cuh) over
+                          the schedule table of ops/g2_team.py, which
+                          rides behind the G2 constants (_g2_consts);
   K6 ``merge_combine_g1`` / ``merge_combine_g2`` (csrc/msm_merge.cu) — the
                           merge strategy's per-level combine (T5).
 
@@ -45,6 +48,8 @@ from pathlib import Path
 
 import torch
 
+from . import g2_team
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kzg_tpu_torch"
@@ -52,7 +57,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"mont_mul": "mont_mul.cu", "g1_ops": "g1_ops.cu",
            "g2_ops": "g2_ops.cu", "msm_merge": "msm_merge.cu"}
-HEADERS = ["mont.cuh", "fp2.cuh", "g1.cuh", "g2.cuh"]
+HEADERS = ["mont.cuh", "fp2.cuh", "g1.cuh", "g2.cuh", "g2_team.cuh"]
 
 
 class Kernel:
@@ -272,8 +277,10 @@ def _g2_consts(G):
     """K1's constants of the base field, then the exact 16-bit limbs of 2p
     and 4p (the slacks of Fp2.mul's output subtractions), of 16p and 32p
     (the add's and the doubling's exact subtractions) and the twist's 3b'
-    in Montgomery form, c0 then c1 — the layout of g2.cuh g2_from_host. The
-    kernels take Fp2 with qnr = -1, as BN254's; other curves raise."""
+    in Montgomery form, c0 then c1 — the layout of g2.cuh g2_from_host —
+    then the lane-team schedules of K4/K5 (g2_team.table()); K6 reads the
+    constants alone. The kernels take Fp2 with qnr = -1, as BN254's; other
+    curves raise."""
     F2 = G.F
     B = F2.base
     if not F2.qnr_is_m1:
@@ -285,7 +292,8 @@ def _g2_consts(G):
 
     b3 = G._b3.cpu().tolist()                    # (2, L) Montgomery limbs
     return (list(B.params.limbs) + list(B.params.one_limbs) + [B.n0]
-            + kp(2) + kp(4) + kp(16) + kp(32) + b3[0] + b3[1])
+            + kp(2) + kp(4) + kp(16) + kp(32) + b3[0] + b3[1]
+            + list(g2_team.table()))
 
 
 def _consts(G):
