@@ -13,7 +13,7 @@ mismatch or exception exits non-zero before the result line):
                Fp and Fr with lazy input limbs; K2/K4 (G1/G2 complete add,
                with and without reset mask) and K3/K5 (G1/G2 doubling chain,
                times 1 and 8) over 8200 lanes with infinity, doubling and
-               negation cases, K4/K5 again at the ragged widths of their
+               negation cases, K2-K5 again at the ragged widths of their
                lane teams (1, 5, 31, 32, 33, 127, 8193 lanes); K6 (merge
                combine, G1 and G2) over 8200 lanes with random masks: each
                held against its plain PyTorch version on the same card
@@ -43,7 +43,7 @@ mismatch or exception exits non-zero before the result line):
                each kernel's launches on the main and msm paths, its
                largest error against the plain version, its device time per
                launch, the plain version's time per call, and the bound at
-               that shape; before it the "sweep" line: K4 and K5 held
+               that shape; before it the "sweep" line: K2-K5 held
                against their plain versions and timed at every distinct
                shape the two paths launched, with each path's device time
                in the kernel (path_ms = sum of launches x ms).
@@ -69,7 +69,7 @@ DEGREE = 4096
 WARM_RUNS = 3
 K1_LANES = (4096, 131072, 811008)        # scripts/tpu_checks.py's sizes
 K23_LANES = 8200
-EDGE_LANES = (1, 5, 31, 32, 33, 127, 8193)   # K4/K5 ragged team edges
+EDGE_LANES = (1, 5, 31, 32, 33, 127, 8193)   # K2-K5 ragged team edges
 MSM_POINTS = DEGREE + 1                  # the merge msm of the msm phase
 MSM_SCAN_POINTS = 256                    # its log and scan strategies
 MAIN_KERNELS = ("mont_mul", "g1_add", "g1_dbl", "g2_add", "g2_dbl")
@@ -345,8 +345,7 @@ def phase_kernels(dev, errs):
              f"(times 1, 8) == plain as canonical affine points over {lanes} "
              "lanes incl. infinity/doubling/negation; outputs exact 16-bit, "
              "< 1.1p; 24 lanes vs oracle")
-        if G.is_fp2:
-            edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs)
+        edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs)
 
         # K6 on the same group: aR, bL = P, Q; aL, bR a second pair
         t0 = time.time()
@@ -372,42 +371,45 @@ def phase_kernels(dev, errs):
 
 
 def edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs):
-    """K4 and K5 at the ragged widths of their lane teams: the first n lanes
-    of the K23_LANES batch (lane 0 doubles, lane 1 negates, lanes 2-4 hold
+    """The add and doubling-chain kernels of G's group (K2/K3 or K4/K5) at
+    the ragged widths of their lane teams: the first n lanes of the
+    K23_LANES batch (lane 0 doubles, lane 1 negates, lanes 2-4 hold
     infinity), with and without the reset mask, times 1 and 8; exact
     against the plain version, outputs fresh, the first 8 lanes against the
     oracle."""
     from kzg_tpu_torch.ops import cuda
     t0 = time.time()
+    grp = "g2" if G.is_fp2 else "g1"
+    kadd, kdbl = f"{grp}_add", f"{grp}_dbl"
+    add, dbl = getattr(cuda, kadd), getattr(cuda, kdbl)
     for n in EDGE_LANES:
         Pn = {k: v[..., :n].contiguous() for k, v in P.items()}
         Qn = {k: v[..., :n].contiguous() for k, v in Q.items()}
-        what = f"g2_add lanes={n}"
-        k = cuda.g2_add(G, Pn, Qn)
+        what = f"{kadd} lanes={n}"
+        k = add(G, Pn, Qn)
         fresh_points(G, k, what)
         got = G.unpack_affine(same_points(G, k, G._add_plain(Pn, Qn), what,
-                                          "g2_add", errs))
+                                          kadd, errs))
         for i in range(min(n, 8)):
             check(got[i] == og.add(pts_p[i], pts_q[i]), f"{what} lane {i} "
                   "vs oracle")
         mask = torch.rand(n, generator=gen, device=P["x"].device) < 0.5
-        k = cuda.g2_add(G, Pn, Qn, mask)
+        k = add(G, Pn, Qn, mask)
         fresh_points(G, k, f"{what} reset")
         same_points(G, k, G.select(mask, Qn, G._add_plain(Pn, Qn)),
-                    f"{what} reset mask", "g2_add", errs)
+                    f"{what} reset mask", kadd, errs)
         for times in (1, 8):
-            what = f"g2_dbl lanes={n} times={times}"
-            k = cuda.g2_dbl(G, Pn, times)
+            what = f"{kdbl} lanes={n} times={times}"
+            k = dbl(G, Pn, times)
             fresh_points(G, k, what)
             ref = Pn
             for _ in range(times):
                 ref = G._dbl_plain(ref)
-            got = G.unpack_affine(same_points(G, k, ref, what, "g2_dbl",
-                                              errs))
+            got = G.unpack_affine(same_points(G, k, ref, what, kdbl, errs))
             for i in range(min(n, 8)):
                 check(got[i] == og.mul(1 << times, pts_p[i]),
                       f"{what} lane {i} vs oracle")
-    line("kernels", t0, f"g2_add (with/without reset mask) and g2_dbl (times "
+    line("kernels", t0, f"{kadd} (with/without reset mask) and {kdbl} (times "
          f"1, 8) == plain at edge widths {EDGE_LANES} lanes; outputs exact "
          "16-bit, < 1.1p; first 8 lanes vs oracle")
 
@@ -627,15 +629,27 @@ def point_work(words, coords, muls, lanes):
     return coords * words * 8 * lanes, muls * 2 * MACS_PER_MUL * lanes
 
 
-def sweep(paths, base2, bound, errs):
-    """K4 and K5 at every distinct shape of the main and msm paths: each
-    held against its plain version (exact canonical affine points), then its
+# per group: int64 words of a coordinate, base Montgomery products of an
+# add and of a doubling, and of the re-reduction after a chain. G1: an add
+# does 12 products and re-reduces 3 outputs, a doubling 9. G2: an add does
+# 14 Fp2 products of 3 base products and re-reduces 6 components, a
+# doubling 9 Fp2 products
+POINT_WORK = {"g1": (17, 15, 9, 3), "g2": (2 * 17, 48, 27, 6)}
+
+
+def sweep(paths, bases, bound, errs):
+    """K2-K5 at every distinct shape of the main and msm paths: each held
+    against its plain version (exact canonical affine points), then its
     device time per launch (kernel_ms) and bound; per path, path_ms = sum
-    over shapes of the path's launches x ms."""
+    over shapes of the path's launches x ms. bases: {group: (curve, P, Q)}.
+    An add moves 9 coordinates, a chain 6."""
     from kzg_tpu_torch.ops import cuda
-    G, base_p, base_q = base2
     res = {}
-    for name in ("g2_add", "g2_dbl"):
+    for name in ("g1_add", "g1_dbl", "g2_add", "g2_dbl"):
+        grp = name[:2]
+        G, base_p, base_q = bases[grp]
+        words, add_muls, dbl_muls, fresh_muls = POINT_WORK[grp]
+        kadd, kdbl = getattr(cuda, f"{grp}_add"), getattr(cuda, f"{grp}_dbl")
         keys = sorted({key for _, shp in paths.values()
                        for key in shp.get(name, {})},
                       key=lambda k: k if isinstance(k, tuple) else (k,))
@@ -645,13 +659,13 @@ def sweep(paths, base2, bound, errs):
             P, Q = tiled(base_p, lanes), tiled(base_q, lanes)
             if times is None:
                 def kern():
-                    return cuda.g2_add(G, P, Q)
+                    return kadd(G, P, Q)
 
                 def plain():
                     return G._add_plain(P, Q)
             else:
                 def kern():
-                    return cuda.g2_dbl(G, P, times)
+                    return kdbl(G, P, times)
 
                 def plain():
                     R = P
@@ -667,12 +681,10 @@ def sweep(paths, base2, bound, errs):
                        for path, (_, shp) in paths.items()}
             for path, n in by_path.items():
                 path_ms[path] += n * ms
-            # an add moves 9 Fp2 coordinates and does 48 base products (14
-            # Fp2 products of 3, 6 re-reductions); a chain moves 6 and does
-            # 27 per doubling and 6 to re-reduce
-            b, by = bound(*point_work(2 * 17, 9 if times is None else 6,
-                                      48 if times is None
-                                      else 27 * times + 6, lanes))
+            b, by = bound(*point_work(words, 9 if times is None else 6,
+                                      add_muls if times is None
+                                      else dbl_muls * times + fresh_muls,
+                                      lanes))
             rows.append({"lanes": lanes, "times": times,
                          "launches_by_path": by_path, "ms": ms,
                          "bound_ms": b, "bound_by": by, "max_abs_err": err})
@@ -734,17 +746,13 @@ def phase_kernel_line(dev, paths, errs):
           lambda: F._mul_plain(a, b), F.canon, 3 * L * 8 * lanes,
           2 * MACS_PER_MUL * lanes, {"lanes": lanes})
 
-    # G1 products per op: add 15 (6 + 6 + 3 re-reductions), doubling 9;
-    # G2 products per op in base-field products: add 48 (14 Fp2 products
-    # of 3 + 6 re-reductions), doubling 27 (9 Fp2 products)
-    for grp, Gc, inputs, words, add_muls, dbl_muls, fresh_muls in (
-            ("g1", G, g1_inputs, L, 15, 9, 3),
-            ("g2", G2, g2_inputs, 2 * L, 48, 27, 6)):
+    bases = {}
+    for grp, Gc, inputs in (("g1", G, g1_inputs), ("g2", G2, g2_inputs)):
+        words, add_muls, dbl_muls, fresh_muls = POINT_WORK[grp]
         add, dbl = f"{grp}_add", f"{grp}_dbl"
         kadd, kdbl = getattr(cuda, add), getattr(cuda, dbl)
         base_p, base_q, _, _, _ = inputs(ctx, K23_LANES, rng)
-        if Gc.is_fp2:
-            base2 = (Gc, base_p, base_q)
+        bases[grp] = (Gc, base_p, base_q)
         lanes = heaviest(shapes[add])
         P, Q = tiled(base_p, lanes), tiled(base_q, lanes)
         entry(add, lambda: kadd(Gc, P, Q), lambda: Gc._add_plain(P, Q),
@@ -778,7 +786,7 @@ def phase_kernel_line(dev, paths, errs):
               lambda: eng._combine_plain(aL, aR, bL, bR, *masks),
               packed_all(Gc), (7 * 3 * words * 8 + 3) * lanes,
               add_muls * 2 * MACS_PER_MUL * lanes, {"lanes": lanes})
-    print(json.dumps({"sweep": sweep(paths, base2, bound, errs)}),
+    print(json.dumps({"sweep": sweep(paths, bases, bound, errs)}),
           flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     line("kernels", t0, "each kernel == its plain version at the heaviest "

@@ -19,7 +19,7 @@
 // the point operation spills there too. That bounds registers and nvcc's
 // time; the local-memory traffic and the one thread's serial chain of 48
 // products per add bound its speed. K4/K5 left this design for lane teams
-// (g2_team.cuh), which share fe_sub_exact and the constants with it.
+// (team.cuh), which share mont.cuh's fe_sub_exact with it.
 #pragma once
 
 #include "mont.cuh"
@@ -37,19 +37,6 @@ struct Fp2Mod {
   uint32_t kp2[L];
   uint32_t kp4[L];
 };
-
-// Exact a + kp - b: exact 16-bit limbs, value a + kp - b (value(b) <= kp).
-// Limbs of a and b below 2^30; the running carry is signed.
-__device__ __forceinline__ void fe_sub_exact(Fe& o, const Fe& a, const Fe& b,
-                                             const uint32_t* kp) {
-  int64_t c = 0;
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    const int64_t d = (int64_t)a.v[k] + (int64_t)kp[k] - (int64_t)b.v[k] + c;
-    o.v[k] = (uint32_t)(d & MASK16);
-    c = d >> 16;                       // arithmetic: floor division
-  }
-}
 
 // One Montgomery product, not inlined (see the register budget above).
 static __device__ __noinline__ void fe_mul_ni(Fe& o, const Fe& a,

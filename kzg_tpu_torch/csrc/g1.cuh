@@ -1,15 +1,15 @@
-// G1 point device functions (BN254, a = 0), shared by K2/K3 (g1_ops.cu)
-// and the G1 instance of K6 (msm_merge.cu).
+// G1 point device functions of one thread per lane (BN254, a = 0), used by
+// the G1 instance of K6 (msm_merge.cu), and the G1 constant block, whose
+// modulus constants K2/K3 (g1_ops.cu, lane teams) read as well.
 //
-// Formulas and lazy bounds are those of kzg_tpu/groups/ec.py Curve.add /
-// Curve.dbl for BN254: 3b = 6 is a lazy small multiple, as
-// Curve._mul_b3 -> Field.mul_const does for constants <= 14; 9b = 18 is a
-// full Montgomery product by its Montgomery form, as Curve.dbl does for
-// 9b > 15 (the wrapper refuses curves outside these branches). Inputs are
-// coordinates as the field's lazy ops leave them (limbs < 2^20, values up
-// to a few hundred p, e.g. a negated y); every Montgomery product then
-// stays below 4 p. Every output coordinate of g1_add is re-reduced
-// (fe_fresh): exact 16-bit limbs, value < 1.1 p.
+// The formula and lazy bounds are those of kzg_tpu/groups/ec.py Curve.add
+// for BN254: 3b = 6 is a lazy small multiple, as Curve._mul_b3 ->
+// Field.mul_const does for constants <= 14 (the wrapper refuses curves
+// outside this branch). Inputs are coordinates as the field's lazy ops
+// leave them (limbs < 2^20, values up to a few hundred p, e.g. a negated
+// y); every Montgomery product then stays below 4 p. Every output
+// coordinate of g1_add is re-reduced (fe_fresh): exact 16-bit limbs,
+// value < 1.1 p.
 #pragma once
 
 #include "mont.cuh"
@@ -19,19 +19,12 @@ namespace kzg {
 struct G1Consts {
   Mod M;
   uint32_t lift16[L];   // Field.lift_limbs(16): lazy sub slack of the add
-  uint32_t lift32[L];   // Field.lift_limbs(32): lazy sub slack of the dbl
   uint32_t b3;          // 3b, a small integer (<= 14)
-  uint32_t b9[L];       // Montgomery form of 9b
 };
 
 struct Pt {
   Fe x, y, z;
 };
-
-__device__ __forceinline__ void fe_const(Fe& o, const uint32_t* c) {
-#pragma unroll
-  for (int k = 0; k < L; ++k) o.v[k] = c[k];
-}
 
 // RCB15 Alg 7 (a = 0), the dataflow of Curve.add.
 __device__ __forceinline__ void g1_add(Pt& R, const Pt& P, const Pt& Q,
@@ -78,36 +71,6 @@ __device__ __forceinline__ void g1_add(Pt& R, const Pt& P, const Pt& Q,
   fe_fresh(R.z, u, M);
 }
 
-// RCB15 Alg 9 (a = 0), the dataflow of Curve.dbl; outputs lazy (X, Y
-// < 2.2 p, limbs <= 2^17; Z fresh) — valid inputs of the next doubling.
-__device__ __forceinline__ void g1_dbl(Pt& P, const G1Consts& C) {
-  const Mod& M = C.M;
-  Fe t0, t1, zz, xy, e8, t2, Y3t, X3, Z3, t29, c, Ya, Xa;
-  mont_mul(t0, P.y, P.y, M);
-  mont_mul(t1, P.y, P.z, M);
-  mont_mul(zz, P.z, P.z, M);
-  mont_mul(xy, P.x, P.y, M);
-  fe_small(e8, t0, 8);                  // 8 Y^2
-  fe_small(t2, zz, C.b3);               // 3b Z^2
-  fe_add(Y3t, t0, t2);                  // Y^2 + 3b Z^2
-  mont_mul(X3, t2, e8, M);
-  mont_mul(Z3, t1, e8, M);
-  fe_const(c, C.b9);
-  mont_mul(t29, zz, c, M);              // 9b Z^2
-  fe_sub(t0, t0, t29, C.lift32);        // Y^2 - 9b Z^2
-  mont_mul(Ya, t0, Y3t, M);
-  mont_mul(Xa, t0, xy, M);
-  fe_add(P.y, Ya, X3);
-  fe_small(P.x, Xa, 2);
-  P.z = Z3;
-}
-
-__device__ __forceinline__ void pt_fresh(Pt& R, const Pt& P, const Mod& M) {
-  fe_fresh(R.x, P.x, M);
-  fe_fresh(R.y, P.y, M);
-  fe_fresh(R.z, P.z, M);
-}
-
 // A G1 point batch is three int64[L, lanes] coordinate arrays.
 __device__ __forceinline__ void pt_load(Pt& P, const int64_t* x,
                                         const int64_t* y, const int64_t* z,
@@ -127,15 +90,14 @@ __device__ __forceinline__ void pt_store(int64_t* out, const Pt& P,
 }
 
 // Host array layout (kzg_tpu_torch/ops/cuda.py _g1_consts): p, R mod p,
-// n0, lift16, lift32, 3b, 9b — 5 L + 2 uint32.
+// n0, lift16, 3b — 3 L + 2 uint32, followed by K2/K3's team block
+// (team.cuh).
 inline G1Consts g1_from_host(const uint32_t* h) {
   G1Consts C;
   C.M = mod_from_host(h);
   const uint32_t* r = h + 2 * L + 1;
   for (int k = 0; k < L; ++k) C.lift16[k] = r[k];
-  for (int k = 0; k < L; ++k) C.lift32[k] = r[L + k];
-  C.b3 = r[2 * L];
-  for (int k = 0; k < L; ++k) C.b9[k] = r[2 * L + 1 + k];
+  C.b3 = r[L];
   return C;
 }
 

@@ -10,72 +10,92 @@
 //         `step` = select(s, p, add(c, p)) (the reset mask), T6/T7 the
 //         weighted-reduction adds of MSMEngine._weighted_chunked;
 //   K3 <- T3 kzg_tpu/groups/ec.py Curve.dbl_f(times) (RCB15 Alg 9), run by
-//         MSMEngine.precompute_shifted with times = 8.
+//         MSMEngine.precompute_shifted with times = 8 and by the merge
+//         msm's Horner tail.
 //
 // Bound on the card: an add reads 6 and writes 3 coordinates (9 x 17 int64
-// limbs, 1224 bytes per lane) and does 13 Montgomery products plus 3 to
-// re-reduce its outputs (~9,500 16-bit multiply-accumulates); a doubling
-// chain reads 3 and writes 3 coordinates for 8 products per doubling. At
-// main-path widths (about a thousand lanes per bucket step) both are bound
-// by latency and launch count rather than by bytes or multiplies. The
-// design keeps a whole point operation in one thread's registers, so no
-// intermediate coordinate touches memory and one launch replaces a dozen
-// multiply launches. The point formulas live in g1.cuh, shared with K6.
-#include "g1.cuh"
+// limbs, 1224 bytes per lane) and does 12 Montgomery products plus 3 to
+// re-reduce its outputs; a doubling does 9 (4, then 3, then 2 independent
+// ones). The paths launch them narrow (32 lanes in setup's comb and the
+// bucket scans' tails, a few hundred to a few thousand per chunked bucket
+// step, 1 lane x 8 in the merge msm's Horner tail, 5000 x 8 for the
+// shifted bases), where one lane's serial chain of products sets the time
+// when one thread owns a lane: 15 products per add, 75 per chain of 8.
+//
+// Design (team.cuh, shared with K4/K5): each lane is owned by a team of T
+// threads of one warp (T and the warps per block come with the schedule
+// table, kzg_tpu_torch/ops/team.py; the add and the doubling have their
+// own). The point, the constants and every intermediate live in the
+// block's shared memory; the formula runs as levels of independent
+// instructions spread over the team, each product an inlined 17 x 17
+// Montgomery product on operands in registers. A lane's chain falls to the
+// product rounds of its schedule (team.rounds: 3 per add at T = 6, 3 per
+// doubling at T = 3, with every thread busy in each). The subtractions
+// are exact with the slack m p of the plain version's lazy ones, so every
+// product sees the plain version's values. Outputs are re-reduced: exact
+// 16-bit limbs, value < 1.1 p. K6 (msm_merge.cu) keeps g1.cuh's
+// one-thread add.
+#include "team.cuh"
 
 namespace kzg {
 
-__global__ void __launch_bounds__(128)
+constexpr int G1_CONST_WORDS = 3 * L + 2;  // before the team block (g1.cuh)
+
+__global__ void __launch_bounds__(256)
 g1_add_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
               const int64_t* __restrict__ pz, const int64_t* __restrict__ qx,
               const int64_t* __restrict__ qy, const int64_t* __restrict__ qz,
               const uint8_t* __restrict__ reset, int64_t* __restrict__ out,
-              int64_t lanes, G1Consts C) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  Pt Q, R;
-  pt_load(Q, qx, qy, qz, lanes, i);
-  if (reset != nullptr && reset[i]) {
-    pt_fresh(R, Q, C.M);                // segment start: restart at Q
-  } else {
-    Pt P;
-    pt_load(P, px, py, pz, lanes, i);
-    g1_add(R, P, Q, C);
+              int64_t lanes, Mod M) {
+  TeamLane t;
+  if (!team_setup(t, lanes, K_ADD)) return;
+  const bool rst = reset != nullptr && reset[t.i];
+  for (int e = t.rank + (rst ? 3 : 0); e < 6; e += t.team) {
+    const int64_t* src = e == 0 ? px : e == 1 ? py : e == 2 ? pz
+                       : e == 3 ? qx : e == 4 ? qy : qz;
+    team_load(src, (uint32_t)e, t, lanes);   // P in slots 0-2, Q in 3-5
   }
-  pt_store(out, R, lanes, i);
+  __syncwarp(t.mask);
+  team_run(rst ? S_RESET : S_ADD, t, M);    // reset: Q re-reduced
+  team_store(out, rst ? O_RESET : O_ADD, 3, t, lanes);
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256)
 g1_dbl_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
               const int64_t* __restrict__ pz, int64_t* __restrict__ out,
-              int64_t lanes, int times, G1Consts C) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  Pt P;
-  pt_load(P, px, py, pz, lanes, i);
-  for (int t = 0; t < times; ++t) g1_dbl(P, C);
-  Pt R;
-  pt_fresh(R, P, C.M);
-  pt_store(out, R, lanes, i);
+              int64_t lanes, int times, Mod M) {
+  TeamLane t;
+  if (!team_setup(t, lanes, K_DBL)) return;
+  for (int e = t.rank; e < 3; e += t.team)
+    team_load(e == 0 ? px : e == 1 ? py : pz, (uint32_t)e, t, lanes);
+  __syncwarp(t.mask);
+  for (int step = 0; step <= times; ++step)  // the doublings stay in slots
+    team_run(step < times ? S_DBL : S_FRESH, t, M);
+  team_store(out, O_FRESH, 3, t, lanes);
 }
 
 }  // namespace kzg
 
 // P, Q coordinates: int64[n_limbs, lanes] contiguous on the card; reset:
-// uint8[lanes] or null; out: int64[3, n_limbs, lanes]. out = reset ? Q :
-// P + Q per lane. Returns cudaGetLastError() after the launch.
+// uint8[lanes] or null; out: int64[3, n_limbs, lanes]; consts: the G1
+// constants then the team block (ops/cuda.py _g1_consts). out = reset ? Q
+// : P + Q per lane. Returns cudaGetLastError() after the launch, or
+// BAD_LIMBS / BAD_TABLE / the error of the table's upload.
 extern "C" int kzg_g1_add(const int64_t* px, const int64_t* py,
                           const int64_t* pz, const int64_t* qx,
                           const int64_t* qy, const int64_t* qz,
                           const uint8_t* reset, int64_t* out, int64_t lanes,
                           const uint32_t* consts, int n_limbs, void* stream) {
-  if (n_limbs != kzg::L) return kzg::BAD_LIMBS;
-  const kzg::G1Consts C = kzg::g1_from_host(consts);
-  const int threads = 128;
-  const int64_t blocks = (lanes + threads - 1) / threads;
-  kzg::g1_add_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      px, py, pz, qx, qy, qz, reset, out, lanes, C);
-  return (int)cudaGetLastError();
+  using namespace kzg;
+  if (n_limbs != L) return BAD_LIMBS;
+  static size_t attr = 0;
+  const Mod M = mod_from_host(consts);
+  return team_launch(
+      consts + G1_CONST_WORDS, K_ADD, (const void*)g1_add_kernel, &attr,
+      lanes, stream, [&](unsigned blocks, int threads, size_t smem) {
+        g1_add_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+            px, py, pz, qx, qy, qz, reset, out, lanes, M);
+      });
 }
 
 // out = 2^times P per lane.
@@ -83,11 +103,14 @@ extern "C" int kzg_g1_dbl(const int64_t* px, const int64_t* py,
                           const int64_t* pz, int64_t* out, int64_t lanes,
                           int times, const uint32_t* consts, int n_limbs,
                           void* stream) {
-  if (n_limbs != kzg::L) return kzg::BAD_LIMBS;
-  const kzg::G1Consts C = kzg::g1_from_host(consts);
-  const int threads = 128;
-  const int64_t blocks = (lanes + threads - 1) / threads;
-  kzg::g1_dbl_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      px, py, pz, out, lanes, times, C);
-  return (int)cudaGetLastError();
+  using namespace kzg;
+  if (n_limbs != L) return BAD_LIMBS;
+  static size_t attr = 0;
+  const Mod M = mod_from_host(consts);
+  return team_launch(
+      consts + G1_CONST_WORDS, K_DBL, (const void*)g1_dbl_kernel, &attr,
+      lanes, stream, [&](unsigned blocks, int threads, size_t smem) {
+        g1_dbl_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+            px, py, pz, out, lanes, times, M);
+      });
 }

@@ -1,15 +1,13 @@
 // G2 point device functions (BN254's twist over Fp2, a = 0) of one
 // thread per lane, used by the G2 instance of K6 (msm_merge.cu), and the G2
-// constant block that K4/K5 (g2_ops.cu, g2_team.cuh) read as well.
+// constant block, whose modulus constants K4/K5 (g2_ops.cu) read as well.
 //
-// The dataflow is that of kzg_tpu_torch/groups/ec.py Curve._add_plain /
-// Curve._dbl_plain over Fp2 (kzg_tpu/groups/ec.py Curve.add / Curve.dbl):
+// The dataflow is that of kzg_tpu_torch/groups/ec.py Curve._add_plain
+// over Fp2 (kzg_tpu/groups/ec.py Curve.add):
 //   * 3b' is a full Fp2 constant: Curve._mul_b3 is a full Fp2 product by
 //     the Montgomery form of the twist's 3b', here too;
 //   * every subtraction is exact (Fp2.sub, lazy=False) with the slack the
-//     plain version names: k = 16 in the add, k = 32 in the doubling;
-//   * the doubling's 9b' Z^2 is mul_small(3b' Z^2, 3), as on the plain
-//     version's Fp2 branch.
+//     plain version names, k = 16.
 // Inputs are coordinates as the Fp2 ops leave them (components up to a
 // few tens of p, exact or lazily added 16-bit limbs). Every output
 // coordinate of g2_add is re-reduced: exact 16-bit limbs, each component
@@ -24,7 +22,6 @@ namespace kzg {
 struct G2Consts {
   Fp2Mod F;
   uint32_t kp16[L];     // exact 16-bit limbs of 16 p: the add's sub slack
-  uint32_t kp32[L];     // 32 p: the doubling's sub slack
   Fe2 b3;               // Montgomery form of the twist's 3b'
 };
 
@@ -77,36 +74,6 @@ __device__ __forceinline__ void g2_add(Pt2& R, const Pt2& P, const Pt2& Q,
   fp2_fresh(R.z, u, F.M);
 }
 
-// RCB15 Alg 9 (a = 0) over Fp2, the Fp2 branch of Curve._dbl_plain;
-// outputs lazy (X, Y <= 11.2 p, limbs <= 2^17; Z <= 5.6 p exact) — valid
-// inputs of the next doubling.
-__device__ __forceinline__ void g2_dbl(Pt2& P, const G2Consts& C) {
-  const Fp2Mod& F = C.F;
-  Fe2 t0, t1, zz, xy, e8, t2, Y3t, X3, t29, Ya, Xa;
-  fp2_mul(t0, P.y, P.y, F);
-  fp2_mul(t1, P.y, P.z, F);
-  fp2_mul(zz, P.z, P.z, F);
-  fp2_mul(xy, P.x, P.y, F);
-  fp2_small(e8, t0, 8);                 // 8 Y^2
-  fp2_mul(t2, zz, C.b3, F);             // 3b' Z^2
-  fp2_add(Y3t, t0, t2);                 // Y^2 + 3b' Z^2
-  fp2_mul(X3, t2, e8, F);
-  fp2_mul(P.z, t1, e8, F);              // Z3 (P.z is read above only)
-  fp2_small(t29, t2, 3);                // 9b' Z^2
-  fp2_sub(t0, t0, t29, C.kp32);         // Y^2 - 9b' Z^2
-  fp2_mul(Ya, t0, Y3t, F);
-  fp2_mul(Xa, t0, xy, F);
-  fp2_add(P.y, Ya, X3);
-  fp2_small(P.x, Xa, 2);
-}
-
-__device__ __forceinline__ void pt2_fresh(Pt2& R, const Pt2& P,
-                                          const Mod& M) {
-  fp2_fresh(R.x, P.x, M);
-  fp2_fresh(R.y, P.y, M);
-  fp2_fresh(R.z, P.z, M);
-}
-
 // A G2 point batch is three int64[2, L, lanes] coordinate arrays.
 __device__ __forceinline__ void pt2_load(Pt2& P, const int64_t* x,
                                          const int64_t* y, const int64_t* z,
@@ -135,8 +102,8 @@ __device__ __forceinline__ void g2_consts_to_shared(G2Consts& dst,
 }
 
 // Host array layout (kzg_tpu_torch/ops/cuda.py _g2_consts): p, R mod p, n0,
-// 2p, 4p, 16p, 32p (exact 16-bit limbs), 3b' c0, 3b' c1 (Montgomery) —
-// 8 L + 1 uint32, followed by K4/K5's schedule table (g2_team.cuh).
+// 2p, 4p, 16p (exact 16-bit limbs), 3b' c0, 3b' c1 (Montgomery) —
+// 7 L + 1 uint32, followed by K4/K5's team block (team.cuh).
 inline G2Consts g2_from_host(const uint32_t* h) {
   G2Consts C;
   C.F.M = mod_from_host(h);
@@ -144,9 +111,8 @@ inline G2Consts g2_from_host(const uint32_t* h) {
   for (int k = 0; k < L; ++k) C.F.kp2[k] = r[k];
   for (int k = 0; k < L; ++k) C.F.kp4[k] = r[L + k];
   for (int k = 0; k < L; ++k) C.kp16[k] = r[2 * L + k];
-  for (int k = 0; k < L; ++k) C.kp32[k] = r[3 * L + k];
-  for (int k = 0; k < L; ++k) C.b3.c0.v[k] = r[4 * L + k];
-  for (int k = 0; k < L; ++k) C.b3.c1.v[k] = r[5 * L + k];
+  for (int k = 0; k < L; ++k) C.b3.c0.v[k] = r[3 * L + k];
+  for (int k = 0; k < L; ++k) C.b3.c1.v[k] = r[4 * L + k];
   return C;
 }
 

@@ -21,19 +21,29 @@
 // chains), where one lane's serial chain of products sets the time: 48 per
 // add and 222 per chain of 8 when one thread owns a lane.
 //
-// Design (g2_team.cuh): each lane is owned by a team of T threads of one
-// warp (T and the warps per block come with the schedule table,
-// kzg_tpu_torch/ops/g2_team.py). The point, the constants and every
+// Design (team.cuh, shared with K2/K3): each lane is owned by a team of T
+// threads of one warp (T and the warps per block come with the schedule
+// table, kzg_tpu_torch/ops/team.py). The point, the constants and every
 // intermediate live in the block's shared memory; the formula runs as
 // levels of independent instructions spread over the team, each product
 // an inlined 17 x 17 Montgomery product on operands in registers. A lane's
-// chain falls to the product rounds of its schedule (g2_team.rounds: 7 per
+// chain falls to the product rounds of its schedule (team.rounds: 7 per
 // add and 4 per doubling at T = 8), and no operand goes through a local
 // stack frame. Outputs are re-reduced: exact 16-bit limbs, each component
 // < 1.1 p. K6 (msm_merge.cu) keeps g2.cuh's one-thread add.
-#include "g2_team.cuh"
+#include "team.cuh"
 
 namespace kzg {
+
+constexpr int G2_CONST_WORDS = 7 * L + 1;  // before the team block (g2.cuh)
+
+// Base element e (coordinate e / 2, component e % 2) of a G2 point whose
+// coordinates are int64[2, L, lanes]: P's in slots 0-5, Q's in 6-11.
+__device__ __forceinline__ void g2_load(const int64_t* coord, int e,
+                                        uint32_t s, const TeamLane& t,
+                                        int64_t lanes) {
+  team_load(coord + (int64_t)(e & 1) * L * lanes, s, t, lanes);
+}
 
 __global__ void __launch_bounds__(256)
 g2_add_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
@@ -42,17 +52,17 @@ g2_add_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
               const uint8_t* __restrict__ reset, int64_t* __restrict__ out,
               int64_t lanes, Mod M) {
   TeamLane t;
-  if (!team_setup(t, lanes)) return;
+  if (!team_setup(t, lanes, K_ADD)) return;
   const bool rst = reset != nullptr && reset[t.i];
   for (int e = t.rank + (rst ? 6 : 0); e < 12; e += t.team) {
     const int c = e >> 1;
     const int64_t* src = c == 0 ? px : c == 1 ? py : c == 2 ? pz
                        : c == 3 ? qx : c == 4 ? qy : qz;
-    team_load(src, e, (uint32_t)e, t, lanes);
+    g2_load(src, e, (uint32_t)e, t, lanes);
   }
   __syncwarp(t.mask);
   team_run(rst ? S_RESET : S_ADD, t, M);    // reset: Q re-reduced
-  team_store(out, rst ? O_RESET : O_ADD, t, lanes);
+  team_store(out, rst ? O_RESET : O_ADD, 6, t, lanes);
 }
 
 __global__ void __launch_bounds__(256)
@@ -60,22 +70,22 @@ g2_dbl_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
               const int64_t* __restrict__ pz, int64_t* __restrict__ out,
               int64_t lanes, int times, Mod M) {
   TeamLane t;
-  if (!team_setup(t, lanes)) return;
+  if (!team_setup(t, lanes, K_DBL)) return;
   for (int e = t.rank; e < 6; e += t.team) {
     const int c = e >> 1;
-    team_load(c == 0 ? px : c == 1 ? py : pz, e, (uint32_t)e, t, lanes);
+    g2_load(c == 0 ? px : c == 1 ? py : pz, e, (uint32_t)e, t, lanes);
   }
   __syncwarp(t.mask);
   for (int step = 0; step <= times; ++step)  // the doublings stay in slots
     team_run(step < times ? S_DBL : S_FRESH, t, M);
-  team_store(out, O_FRESH, t, lanes);
+  team_store(out, O_FRESH, 6, t, lanes);
 }
 
 }  // namespace kzg
 
 // P, Q coordinates: int64[2, n_limbs, lanes] contiguous on the card; reset:
 // uint8[lanes] or null; out: int64[3, 2, n_limbs, lanes]; consts: the G2
-// constants then the schedule table (ops/cuda.py _g2_consts). out = reset ?
+// constants then the team block (ops/cuda.py _g2_consts). out = reset ?
 // Q : P + Q per lane. Returns cudaGetLastError() after the launch, or
 // BAD_LIMBS / BAD_TABLE / the error of the table's upload.
 extern "C" int kzg_g2_add(const int64_t* px, const int64_t* py,
@@ -83,19 +93,16 @@ extern "C" int kzg_g2_add(const int64_t* px, const int64_t* py,
                           const int64_t* qy, const int64_t* qz,
                           const uint8_t* reset, int64_t* out, int64_t lanes,
                           const uint32_t* consts, int n_limbs, void* stream) {
-  if (n_limbs != kzg::L) return kzg::BAD_LIMBS;
+  using namespace kzg;
+  if (n_limbs != L) return BAD_LIMBS;
   static size_t attr = 0;
-  size_t smem;
-  int threads, lpb;
-  const cudaStream_t st = (cudaStream_t)stream;
-  int rc = kzg::team_prepare(consts, st, &smem, &threads, &lpb);
-  if (rc == 0)
-    rc = kzg::team_smem_attr((const void*)kzg::g2_add_kernel, smem, &attr);
-  if (rc != 0) return rc;
-  const int64_t blocks = (lanes + lpb - 1) / lpb;
-  kzg::g2_add_kernel<<<(unsigned)blocks, threads, smem, st>>>(
-      px, py, pz, qx, qy, qz, reset, out, lanes, kzg::mod_from_host(consts));
-  return (int)cudaGetLastError();
+  const Mod M = mod_from_host(consts);
+  return team_launch(
+      consts + G2_CONST_WORDS, K_ADD, (const void*)g2_add_kernel, &attr,
+      lanes, stream, [&](unsigned blocks, int threads, size_t smem) {
+        g2_add_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+            px, py, pz, qx, qy, qz, reset, out, lanes, M);
+      });
 }
 
 // out = 2^times P per lane.
@@ -103,17 +110,14 @@ extern "C" int kzg_g2_dbl(const int64_t* px, const int64_t* py,
                           const int64_t* pz, int64_t* out, int64_t lanes,
                           int times, const uint32_t* consts, int n_limbs,
                           void* stream) {
-  if (n_limbs != kzg::L) return kzg::BAD_LIMBS;
+  using namespace kzg;
+  if (n_limbs != L) return BAD_LIMBS;
   static size_t attr = 0;
-  size_t smem;
-  int threads, lpb;
-  const cudaStream_t st = (cudaStream_t)stream;
-  int rc = kzg::team_prepare(consts, st, &smem, &threads, &lpb);
-  if (rc == 0)
-    rc = kzg::team_smem_attr((const void*)kzg::g2_dbl_kernel, smem, &attr);
-  if (rc != 0) return rc;
-  const int64_t blocks = (lanes + lpb - 1) / lpb;
-  kzg::g2_dbl_kernel<<<(unsigned)blocks, threads, smem, st>>>(
-      px, py, pz, out, lanes, times, kzg::mod_from_host(consts));
-  return (int)cudaGetLastError();
+  const Mod M = mod_from_host(consts);
+  return team_launch(
+      consts + G2_CONST_WORDS, K_DBL, (const void*)g2_dbl_kernel, &attr,
+      lanes, stream, [&](unsigned blocks, int threads, size_t smem) {
+        g2_dbl_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+            px, py, pz, out, lanes, times, M);
+      });
 }

@@ -107,6 +107,19 @@ __device__ __forceinline__ void fe_sub(Fe& o, const Fe& a, const Fe& b,
   for (int k = 0; k < L; ++k) o.v[k] = d[k];
 }
 
+// Exact a + kp - b: exact 16-bit limbs, value a + kp - b (value(b) <= kp).
+// Limbs of a and b below 2^30; the running carry is signed.
+__device__ __forceinline__ void fe_sub_exact(Fe& o, const Fe& a, const Fe& b,
+                                             const uint32_t* kp) {
+  int64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int64_t d = (int64_t)a.v[k] + (int64_t)kp[k] - (int64_t)b.v[k] + c;
+    o.v[k] = (uint32_t)(d & MASK16);
+    c = d >> 16;                       // arithmetic: floor division
+  }
+}
+
 // Re-reduce to exact 16-bit limbs, value < 1.1 p (times Montgomery 1).
 __device__ __forceinline__ void fe_fresh(Fe& o, const Fe& a, const Mod& M) {
   Fe one;

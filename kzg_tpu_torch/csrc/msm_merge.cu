@@ -16,9 +16,9 @@
 // points (7 x 3 coordinates), and does one complete add. At the first
 // level of a 4097-point MSM (32 x 4096 lanes) both instances are far from
 // either bound, the G2 one held back by its local-memory operands
-// (fp2.cuh). The design keeps one lane in one thread and reuses the add
-// kernels' point functions (g1.cuh, g2.cuh), so the combine costs one
-// launch per level instead of an add launch plus two select passes. The
+// (fp2.cuh). The design keeps one lane in one thread over the one-thread
+// point functions of g1.cuh and g2.cuh, so the combine costs one launch
+// per level instead of an add launch plus two select passes. The
 // selected outputs are copied back from mid's output slot rather than
 // kept live in registers: with mid live across both selections ptxas took
 // minutes on this file, without it seconds.

@@ -1,18 +1,26 @@
-// The lane-team executor of K4 (G2 complete add) and K5 (G2 doubling
-// chain): each lane of a batch is owned by a team of T threads inside one
-// warp, and the team runs the lane's formula as a schedule of levels, read
-// from a table that kzg_tpu_torch/ops/g2_team.py builds (its docstring
-// defines the instructions and the table's words).
+// The lane-team executor of K2/K3 (G1 complete add and doubling chain,
+// g1_ops.cu) and K4/K5 (G2, g2_ops.cu): each lane of a batch is owned by a
+// team of T threads inside one warp, and the team runs the lane's formula
+// as a schedule of levels, read from a table that
+// kzg_tpu_torch/ops/team.py builds (its docstring defines the instructions
+// and the table's words). Nothing here knows the group: a kernel loads its
+// point's base elements into the first slots, runs schedules and stores
+// the output slots that the table names.
 //
-// Shared memory of a block (dynamic, uint32 words):
-//   [0, 3L)        the constant slots: R mod p, the twist's 3b' c0 and c1;
-//   [3L, 8L)       the exact subtractions' slacks: 0, 2p, 4p, 16p, 32p;
+// The team block (the host array behind each group's constants, team.py
+// block()): 8 constant rows of L words (the constant slots R mod p and two
+// group constants, then the exact subtractions' five slacks m p), then the
+// table. Shared memory of a kernel's block (dynamic, uint32 words):
+//   [0, 8L)        the constant rows;
 //   [8L, ...)      the lanes' slots, slot s limb k of lane j (in the block)
 //                  at 8L + (s L + k) lpb + j, lpb = lanes per block: the
 //                  teams of a warp touch neighbouring words.
 // The table sits in constant memory (uploaded by the C entry points when it
 // changes): in a level every team of a warp reads the same instruction
 // words for the same rank, so a warp's fetch is at most T distinct words.
+// The add kernel and the doubling kernel of a group have their own team
+// layout (header words 0-2 and 3-5) and share one image, so alternating
+// launches upload nothing.
 //
 // One instruction runs in one thread: its operands (sums of up to four
 // slots, times a small scale) are loaded from shared memory into
@@ -25,18 +33,20 @@
 
 #include <cstring>
 
-#include "g2.cuh"
+#include "mont.cuh"
 
 namespace kzg {
 
 constexpr int TEAM_WORDS = 768;          // capacity of the schedule table
-constexpr int TEAM_HDR = 31;             // its header (g2_team.py HDR)
+constexpr int TEAM_HDR = 34;             // its header (team.py HDR)
+constexpr int TEAM_N_OUT = 6;            // output slot room per list
 constexpr uint32_t CONST_SLOT = 240;     // slot ids >= this are constants
 constexpr int TEAM_CONST_WORDS = 8 * L;  // constant slots + slacks
 constexpr int BAD_TABLE = 1002;
 enum { T_MUL = 0, T_LAZY = 1, T_EXACT = 2 };
 enum { S_ADD = 0, S_RESET = 1, S_DBL = 2, S_FRESH = 3 };
 enum { O_ADD = 0, O_RESET = 1, O_FRESH = 2 };
+enum { K_ADD = 0, K_DBL = 1 };           // kernel kinds: header words 3 k
 
 struct TeamImage {
   uint32_t cst[TEAM_CONST_WORDS];
@@ -53,14 +63,16 @@ struct TeamLane {
   int64_t i;                             // the lane in the batch
 };
 
-// Copy the constant slots to shared memory and place this thread; false
-// for a thread without a lane (a warp's spare threads, a team past the
-// end). Every thread of the block calls it before any leaves.
-__device__ __forceinline__ bool team_setup(TeamLane& t, int64_t lanes) {
+// Copy the constant rows to shared memory and place this thread for a
+// kernel of kind `kind`; false for a thread without a lane (a warp's spare
+// threads, a team past the end). Every thread of the block calls it before
+// any leaves.
+__device__ __forceinline__ bool team_setup(TeamLane& t, int64_t lanes,
+                                           int kind) {
   for (int w = threadIdx.x; w < TEAM_CONST_WORDS; w += blockDim.x)
     team_sm[w] = c_team.cst[w];
   __syncthreads();
-  t.team = (int)c_team.tab[0];
+  t.team = (int)c_team.tab[3 * kind];
   const int per_warp = 32 / t.team;
   const int wl = threadIdx.x & 31;
   const int tw = wl / t.team;
@@ -101,7 +113,7 @@ __device__ __forceinline__ void team_sum(Fe& x, uint32_t n, uint32_t slots,
   for (int k = 0; k < L; ++k) x.v[k] *= scale;
 }
 
-// One instruction: MUL, LAZY or EXACT (g2_team.py), result into its slot.
+// One instruction: MUL, LAZY or EXACT (team.py), result into its slot.
 __device__ __forceinline__ void team_exec(int at, const TeamLane& t,
                                           const Mod& M) {
   const uint32_t w0 = c_team.tab[at];
@@ -132,9 +144,9 @@ __device__ __forceinline__ void team_exec(int at, const TeamLane& t,
 // then the team meets.
 __device__ __forceinline__ void team_run(int s, const TeamLane& t,
                                          const Mod& M) {
-  const int lv0 = (int)c_team.tab[5 + 2 * s];
-  const int lv1 = (int)c_team.tab[6 + 2 * s];
-  const int ins = TEAM_HDR + (int)c_team.tab[3];
+  const int lv0 = (int)c_team.tab[8 + 2 * s];
+  const int lv1 = (int)c_team.tab[9 + 2 * s];
+  const int ins = TEAM_HDR + (int)c_team.tab[6];
   for (int l = lv0; l < lv1; ++l) {
     const uint32_t w = c_team.tab[TEAM_HDR + l];
     const int first = (int)(w & 0xFFFFu), count = (int)(w >> 16);
@@ -144,24 +156,24 @@ __device__ __forceinline__ void team_run(int s, const TeamLane& t,
   }
 }
 
-// Base element e (coordinate e / 2, component e % 2) of a point batch of
-// int64[2, L, lanes] coordinates into slot s.
-__device__ __forceinline__ void team_load(const int64_t* coord, int e,
-                                          uint32_t s, const TeamLane& t,
-                                          int64_t lanes) {
-  const int64_t* src = coord + (int64_t)(e & 1) * L * lanes + t.i;
+// One base element of this thread's lane into slot s: `src` is the
+// element's int64[L, lanes] limb array.
+__device__ __forceinline__ void team_load(const int64_t* src, uint32_t s,
+                                          const TeamLane& t, int64_t lanes) {
+  src += t.i;
   const int d = slot_word(t, s, 0);
 #pragma unroll
   for (int k = 0; k < L; ++k)
     team_sm[d + k * t.lpb] = (uint32_t)src[(int64_t)k * lanes];
 }
 
-// The output slots of list `o` (O_ADD, O_RESET, O_FRESH) into out:
-// int64[3, 2, L, lanes], element e at e L lanes.
-__device__ __forceinline__ void team_store(int64_t* out, int o,
+// The first n output slots of list `o` (O_ADD, O_RESET, O_FRESH) into out:
+// base element e at e L lanes (int64[3, L, lanes] for G1, int64[3, 2, L,
+// lanes] for G2).
+__device__ __forceinline__ void team_store(int64_t* out, int o, int n,
                                            const TeamLane& t, int64_t lanes) {
-  for (int e = t.rank; e < 6; e += t.team) {
-    const int s = slot_word(t, c_team.tab[13 + 6 * o + e], 0);
+  for (int e = t.rank; e < n; e += t.team) {
+    const int s = slot_word(t, c_team.tab[16 + TEAM_N_OUT * o + e], 0);
     int64_t* dst = out + (int64_t)e * L * lanes + t.i;
 #pragma unroll
     for (int k = 0; k < L; ++k)
@@ -169,33 +181,32 @@ __device__ __forceinline__ void team_store(int64_t* out, int o,
   }
 }
 
-// Host side: the table behind the 8 L + 1 words of the G2 constants (the
-// layout of g2_team.py table()). Checks it, builds the constant image and
-// uploads it on `stream` when it differs from the last upload; returns 0,
-// BAD_TABLE or a CUDA error. *smem gets the block's dynamic shared memory,
-// *threads its threads, *lpb its lanes.
-inline int team_prepare(const uint32_t* consts, cudaStream_t stream,
+// Host side: `blk` is the team block (team.py block()). Checks it, builds
+// the constant image and uploads it on `stream` when it differs from the
+// last upload; returns 0, BAD_TABLE or a CUDA error. For a kernel of kind
+// `kind`: *smem gets the block's dynamic shared memory, *threads its
+// threads, *lpb its lanes.
+inline int team_prepare(const uint32_t* blk, int kind, cudaStream_t stream,
                         size_t* smem, int* threads, int* lpb) {
   static TeamImage last;
   static bool have = false;
-  const uint32_t* tab = consts + 8 * L + 1;
-  const uint32_t team = tab[0], warps = tab[1], slots = tab[2];
-  if (team < 1 || team > 32 || warps < 1 || warps > 8 ||
-      slots > CONST_SLOT)
-    return BAD_TABLE;
-  const uint32_t words = TEAM_HDR + tab[3] + 3 * tab[4];
+  const uint32_t* tab = blk + TEAM_CONST_WORDS;
+  for (int k = 0; k < 2; ++k) {
+    const uint32_t team = tab[3 * k], warps = tab[3 * k + 1];
+    if (team < 1 || team > 32 || warps < 1 || warps > 8 ||
+        tab[3 * k + 2] > CONST_SLOT)
+      return BAD_TABLE;
+  }
+  const uint32_t words = TEAM_HDR + tab[6] + 3 * tab[7];
   if (words > (uint32_t)TEAM_WORDS) return BAD_TABLE;
   TeamImage img = {};
-  const G2Consts C = g2_from_host(consts);
-  const uint32_t* rows[8] = {C.F.M.one, C.b3.c0.v, C.b3.c1.v, nullptr,
-                             C.F.kp2, C.F.kp4, C.kp16, C.kp32};
-  for (int r = 0; r < 8; ++r)
-    for (int k = 0; k < L; ++k) img.cst[r * L + k] = rows[r] ? rows[r][k] : 0;
-  for (uint32_t w = 0; w < words; ++w) img.tab[w] = tab[w];
-  *threads = 32 * (int)warps;
-  *lpb = (32 / (int)team) * (int)warps;
+  memcpy(img.cst, blk, sizeof img.cst);
+  memcpy(img.tab, tab, sizeof(uint32_t) * words);
+  const uint32_t* lay = tab + 3 * kind;
+  *threads = 32 * (int)lay[1];
+  *lpb = (32 / (int)lay[0]) * (int)lay[1];
   *smem = sizeof(uint32_t) *
-          (TEAM_CONST_WORDS + (size_t)slots * L * (size_t)(*lpb));
+          (TEAM_CONST_WORDS + (size_t)lay[2] * L * (size_t)(*lpb));
   if (!have || memcmp(&img, &last, sizeof img) != 0) {
     const cudaError_t e = cudaMemcpyToSymbolAsync(
         c_team, &img, sizeof img, 0, cudaMemcpyHostToDevice, stream);
@@ -214,6 +225,23 @@ inline int team_smem_attr(const void* kernel, size_t smem, size_t* set) {
   if (e != cudaSuccess) return (int)e;
   *set = smem;
   return 0;
+}
+
+// The launch of a team kernel's C entry point: prepare, raise the shared
+// memory attribute if needed, launch over ceil(lanes / lpb) blocks with
+// `launch(blocks, threads, smem)`, and return cudaGetLastError().
+template <typename Launch>
+inline int team_launch(const uint32_t* blk, int kind, const void* kernel,
+                       size_t* attr, int64_t lanes, void* stream,
+                       Launch launch) {
+  size_t smem;
+  int threads, lpb;
+  int rc = team_prepare(blk, kind, (cudaStream_t)stream, &smem, &threads,
+                        &lpb);
+  if (rc == 0) rc = team_smem_attr(kernel, smem, attr);
+  if (rc != 0) return rc;
+  launch((unsigned)((lanes + lpb - 1) / lpb), threads, smem);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace kzg

@@ -12,9 +12,10 @@ kernel, each of its call sites is here a kernel written by hand for Hopper
   K4 ``g2_add``           (csrc/g2_ops.cu)    — G2 complete add with reset
                                                 mask (T2, T4, T6, T7);
   K5 ``g2_dbl``           (csrc/g2_ops.cu)    — chain of G2 doublings (T3);
-                          K4 and K5 run lane teams (csrc/g2_team.cuh) over
-                          the schedule table of ops/g2_team.py, which
-                          rides behind the G2 constants (_g2_consts);
+                          K2-K5 run lane teams (csrc/team.cuh) over the
+                          constant rows and schedule table of ops/team.py,
+                          which ride behind each group's constants
+                          (_g1_consts, _g2_consts);
   K6 ``merge_combine_g1`` / ``merge_combine_g2`` (csrc/msm_merge.cu) — the
                           merge strategy's per-level combine (T5).
 
@@ -48,7 +49,7 @@ from pathlib import Path
 
 import torch
 
-from . import g2_team
+from . import team
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
@@ -57,7 +58,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"mont_mul": "mont_mul.cu", "g1_ops": "g1_ops.cu",
            "g2_ops": "g2_ops.cu", "msm_merge": "msm_merge.cu"}
-HEADERS = ["mont.cuh", "fp2.cuh", "g1.cuh", "g2.cuh", "g2_team.cuh"]
+HEADERS = ["mont.cuh", "fp2.cuh", "g1.cuh", "g2.cuh", "team.cuh"]
 
 
 class Kernel:
@@ -256,31 +257,28 @@ def _mod_consts(F):
 
 
 def _g1_consts(G):
-    """K1's constants, then lift16, lift32, 3b as a small integer and 9b in
-    Montgomery form — the layout of g1.cuh g1_from_host. The kernels
-    follow Curve._add_plain / _dbl_plain on the branches those take when
-    3b <= 14 (a lazy small multiple) and 9b > 15 (a full product), as for
-    BN254; other curves raise."""
+    """K1's constants, then lift16 and 3b as a small integer — the layout
+    of g1.cuh g1_from_host, 3 L + 2 words — then the lane-team block of
+    K2/K3 (team.block); K6 reads the constants alone. The kernels follow
+    Curve._add_plain / _dbl_plain on the branches those take when 3b <= 14
+    (a lazy small multiple) and 9b > 15 (a full product), as for BN254;
+    other curves raise."""
     F = G.F
-    p = F.modulus
     b3 = G._b3_int
     if not (b3 <= 14 and 3 * b3 > 15):
         raise ValueError(f"{G.name}: the G1 kernels take 3b <= 14 and "
                          f"9b > 15, not 3b = {b3}")
-    m9 = 3 * b3 * F.params.mont_r % p
     return (list(F.params.limbs) + list(F.params.one_limbs) + [F.n0]
-            + F.lift_limbs(16)[0] + F.lift_limbs(32)[0] + [b3]
-            + [(m9 >> (16 * i)) & 0xFFFF for i in range(F.L)])
+            + F.lift_limbs(16)[0] + [b3] + team.block(G))
 
 
 def _g2_consts(G):
     """K1's constants of the base field, then the exact 16-bit limbs of 2p
-    and 4p (the slacks of Fp2.mul's output subtractions), of 16p and 32p
-    (the add's and the doubling's exact subtractions) and the twist's 3b'
-    in Montgomery form, c0 then c1 — the layout of g2.cuh g2_from_host —
-    then the lane-team schedules of K4/K5 (g2_team.table()); K6 reads the
-    constants alone. The kernels take Fp2 with qnr = -1, as BN254's; other
-    curves raise."""
+    and 4p (the slacks of Fp2.mul's output subtractions) and of 16p (the
+    add's exact subtractions) and the twist's 3b' in Montgomery form, c0
+    then c1 — the layout of g2.cuh g2_from_host, 7 L + 1 words — then the
+    lane-team block of K4/K5 (team.block); K6 reads the constants alone.
+    The kernels take Fp2 with qnr = -1, as BN254's; other curves raise."""
     F2 = G.F
     B = F2.base
     if not F2.qnr_is_m1:
@@ -292,8 +290,8 @@ def _g2_consts(G):
 
     b3 = G._b3.cpu().tolist()                    # (2, L) Montgomery limbs
     return (list(B.params.limbs) + list(B.params.one_limbs) + [B.n0]
-            + kp(2) + kp(4) + kp(16) + kp(32) + b3[0] + b3[1]
-            + list(g2_team.table()))
+            + kp(2) + kp(4) + kp(16) + b3[0] + b3[1]
+            + team.block(G))
 
 
 def _consts(G):
