@@ -15,11 +15,14 @@ mismatch or exception exits non-zero before the result line):
                times 1 and 8) over 8200 lanes with infinity, doubling and
                negation cases, K2-K5 again at the ragged widths of their
                lane teams (1, 5, 31, 32, 33, 127, 8193 lanes); K6 (merge
-               combine, G1 and G2) over 8200 lanes with random masks: each
-               held against its plain PyTorch version on the same card
-               tensors (exact equality of limbs or of canonical affine
-               points), outputs checked fresh (exact 16-bit limbs, < 1.1p)
-               and sampled lanes against python-int arithmetic;
+               combine, G1 and G2) over 8200 lanes with random masks, from
+               contiguous inputs and from the stride-2 halves of two
+               interleaved sums (a merge level's form, read in place), and
+               at the ragged widths with every mask pattern: each held
+               against its plain PyTorch version on the same card tensors
+               (exact equality of limbs or of canonical affine points),
+               outputs checked fresh (exact 16-bit limbs, < 1.1p) and
+               sampled lanes against python-int arithmetic;
   3. golden  — reproduces the BN254 golden bytes of
                tests/fixtures/golden/ from the 48-term setup file, verifies
                the whole-message proof and refutes a changed byte;
@@ -37,16 +40,20 @@ mismatch or exception exits non-zero before the result line):
                the commitment, G2 over the first 4097 G2 setup points equals
                the chunked G2 msm_shifted; log and scan at 256 points equal
                chunked; cold time, warm median and launches per call (K6
-               must run);
+               must run); then one warm merge msm call per group under
+               torch.profiler (device time, busy share, launches);
   6. kernels line — each kernel held against its plain version once more at
                the heaviest shape its path gave it, then one JSON object:
                each kernel's launches on the main and msm paths, its
                largest error against the plain version, its device time per
                launch, the plain version's time per call, and the bound at
-               that shape; before it the "sweep" line: K2-K5 held
+               that shape; before it the "sweep" line: K2-K6 held
                against their plain versions and timed at every distinct
                shape the two paths launched, with each path's device time
-               in the kernel (path_ms = sum of launches x ms).
+               in the kernel (path_ms = sum of launches x ms) and above
+               its bound (gap_ms = sum of launches x (ms - bound)); K6 also
+               timed from a merge level's stride-2 halves, the wrapper's
+               copies included (halves_ms, halves_path_ms).
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -69,7 +76,7 @@ DEGREE = 4096
 WARM_RUNS = 3
 K1_LANES = (4096, 131072, 811008)        # scripts/tpu_checks.py's sizes
 K23_LANES = 8200
-EDGE_LANES = (1, 5, 31, 32, 33, 127, 8193)   # K2-K5 ragged team edges
+EDGE_LANES = (1, 5, 31, 32, 33, 127, 8193)   # K2-K6 ragged team edges
 MSM_POINTS = DEGREE + 1                  # the merge msm of the msm phase
 MSM_SCAN_POINTS = 256                    # its log and scan strategies
 MAIN_KERNELS = ("mont_mul", "g1_add", "g1_dbl", "g2_add", "g2_dbl")
@@ -365,9 +372,19 @@ def phase_kernels(dev, errs):
             for c in ("x", "y", "z"):
                 check(torch.equal(out[c][..., ~sel], src[c][..., ~sel]),
                       f"{name}: a kept lane's limbs changed")
+        hv, single = halves(aL, P, Q, bR, masks[1:], (8, lanes // 8))
+        kh = cuda.merge_combine(G, *hv, masks[0].reshape(8, lanes // 8),
+                                single[:, 0::2], single[:, 1::2])
+        for a, b in zip(kh, k):
+            for c in ("x", "y", "z"):
+                check(torch.equal(a[c].reshape(b[c].shape), b[c]),
+                      f"{name}: stride-2 halves != contiguous inputs")
         line("kernels", t0, f"{name} == plain (MSMEngine._combine_plain) as "
              f"canonical affine points over {lanes} lanes with random masks; "
-             "kept lanes' limbs unchanged, mid exact 16-bit, < 1.1p")
+             "kept lanes' limbs unchanged, mid exact 16-bit, < 1.1p; the "
+             f"stride-2 halves of interleaved sums (8 x {lanes // 4}) give "
+             "the same limbs as contiguous inputs")
+        merge_edge_widths(G, aL, P, Q, bR, errs)
 
 
 def edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs):
@@ -412,6 +429,63 @@ def edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs):
     line("kernels", t0, f"{kadd} (with/without reset mask) and {kdbl} (times "
          f"1, 8) == plain at edge widths {EDGE_LANES} lanes; outputs exact "
          "16-bit, < 1.1p; first 8 lanes vs oracle")
+
+
+def halves(aL, aR, bL, bR, sing, batch):
+    """The operands of a merge level as _bucket_sums_merge gives them: the
+    even and odd lanes (stride-2 views) of sumL = aL | bL and sumR = aR |
+    bR interleaved over the batch shape `batch` (the lanes reshaped), and
+    asing, bsing as the halves of one interleaved mask. Returns the four
+    point views and the interleaved mask (the views are its [..., 0::2]
+    and [..., 1::2])."""
+    def inter(A, B):
+        return torch.stack([A, B], dim=-1).reshape(
+            A.shape[:-1] + batch[:-1] + (2 * batch[-1],))
+
+    sL = {k: inter(aL[k], bL[k]) for k in aL}
+    sR = {k: inter(aR[k], bR[k]) for k in aR}
+    views = [{k: v[..., j::2] for k, v in S.items()}
+             for S, j in ((sL, 0), (sR, 0), (sL, 1), (sR, 1))]
+    return views, inter(*sing)
+
+
+def merge_edge_widths(G, aL, aR, bL, bR, errs):
+    """K6 at the ragged widths of its lane teams (the first n lanes of the
+    K23_LANES batches), under each of the 8 uniform patterns of (fuse,
+    asing, bsing) and the mixed pattern i % 8: mid equals the plain add
+    as canonical affine points and its limbs are the same under every
+    pattern; newL and newR equal the plain select of the kernel's own mid,
+    limb for limb."""
+    from kzg_tpu_torch.ops import cuda
+    t0 = time.time()
+    name = "merge_combine_g2" if G.is_fp2 else "merge_combine_g1"
+    dev = aR["x"].device
+    for n in EDGE_LANES:
+        ops = [{k: v[..., :n].contiguous() for k, v in X.items()}
+               for X in (aL, aR, bL, bR)]
+        bits = torch.arange(n, device=dev) % 8
+        pats = [torch.full((n,), p, device=dev) for p in range(8)] + [bits]
+        mid0 = None
+        for pat in pats:
+            fuse, asing, bsing = [(pat >> b) & 1 == 1 for b in range(3)]
+            mid, newL, newR = cuda.merge_combine(G, *ops, fuse, asing, bsing)
+            if mid0 is None:
+                mid0 = mid
+                same_points(G, mid, G._add_plain(ops[1], ops[2]),
+                            f"{name} lanes={n} mid", name, errs)
+                fresh_points(G, mid, f"{name} lanes={n} mid")
+            for c in ("x", "y", "z"):
+                check(torch.equal(mid[c], mid0[c]), f"{name} lanes={n}: mid "
+                      "differs between mask patterns")
+            for out, src, sel in ((newL, ops[0], fuse & asing),
+                                  (newR, ops[3], fuse & bsing)):
+                want = G.select(sel, mid, src)
+                for c in ("x", "y", "z"):
+                    check(torch.equal(out[c], want[c]), f"{name} lanes={n}: "
+                          "newL/newR != select of mid")
+    line("kernels", t0, f"{name} == plain at edge widths {EDGE_LANES} lanes "
+         "under all 8 uniform mask patterns and i % 8; mid exact 16-bit, "
+         "< 1.1p")
 
 
 def phase_golden(dev):
@@ -564,8 +638,12 @@ def phase_msm(card, main_state):
         check(affine(ctx.g1, out) == want,
               f"msm g1 {strategy} over {m} points != chunked msm_shifted")
         res[f"g1_{strategy}"] = {"points": m, "cold_ms": cold}
-    print(json.dumps({"msm": {"card": card, "warm_runs": WARM_RUNS, **res}}),
-          flush=True)
+    prof = profile_ops({
+        f"merge_{grp}": (lambda eng=MSMEngine(G, ctx.fr, r, strategy="merge"),
+                         P=first(pts, n): eng.msm(sraw, P))
+        for grp, G, pts in groups})
+    print(json.dumps({"msm": {"card": card, "warm_runs": WARM_RUNS, **res,
+                              "profile": prof}}), flush=True)
     line("msm", t_all, f"merge msm over {n} points: G1 == commitment (cold "
          f"{res['g1']['cold_ms']:.1f} / warm {res['g1']['warm_median_ms']:.1f}"
          f" ms), G2 == chunked (cold {res['g2']['cold_ms']:.1f} / warm "
@@ -637,12 +715,86 @@ def point_work(words, coords, muls, lanes):
 POINT_WORK = {"g1": (17, 15, 9, 3), "g2": (2 * 17, 48, 27, 6)}
 
 
-def sweep(paths, bases, bound, errs):
-    """K2-K5 at every distinct shape of the main and msm paths: each held
+def merge_inputs(base_p, base_q, lanes, gen):
+    """K6's operands over `lanes` lanes: aR, bL the two batches tiled, aL,
+    bR the same tiled and rolled, and random masks fuse, asing, bsing."""
+    aR, bL = tiled(base_p, lanes), tiled(base_q, lanes)
+    aL = {k: v.roll(3, dims=-1).contiguous()
+          for k, v in tiled(base_q, lanes).items()}
+    bR = {k: v.roll(5, dims=-1).contiguous()
+          for k, v in tiled(base_p, lanes).items()}
+    masks = [torch.rand(lanes, generator=gen, device=aR["x"].device) < 0.5
+             for _ in range(3)]
+    return aL, aR, bL, bR, masks
+
+
+def merge_work(words, add_muls, lanes):
+    """(bytes, operations) of K6 over `lanes` lanes: 7 points of 3
+    coordinates and 3 mask bytes moved, one add done per lane."""
+    nbytes, ops = point_work(words, 7 * 3, add_muls, lanes)
+    return nbytes + 3 * lanes, ops
+
+
+def merge_sweep(paths, G, base_p, base_q, bound, errs, gen):
+    """K6 of G's group at every width the paths launched: held exactly
+    against MSMEngine._combine_plain (canonical affine points of mid, newL,
+    newR) with random masks, then timed from contiguous inputs (ms, the
+    kernel alone) and from the stride-2 halves of interleaved sums, as a
+    merge level gives them (halves_ms: the wrapper's call, with whatever
+    copies it makes)."""
+    from kzg_tpu_torch.context import get_context
+    from kzg_tpu_torch.ops import cuda
+    from kzg_tpu_torch.ops.msm import MSMEngine
+    grp = "g2" if G.is_fp2 else "g1"
+    name = f"merge_combine_{grp}"
+    words, add_muls, _, _ = POINT_WORK[grp]
+    ctx = get_context("BN254", base_p["x"].device)
+    eng = MSMEngine(G, ctx.fr, ctx.cp.r, strategy="merge")
+    keys = sorted({key for _, shp in paths.values()
+                   for key in shp.get(name, {})})
+    rows = []
+    path_ms = dict.fromkeys(paths, 0.0)
+    halves_path_ms = dict.fromkeys(paths, 0.0)
+    for lanes in keys:
+        aL, aR, bL, bR, masks = merge_inputs(base_p, base_q, lanes, gen)
+        got = cuda.merge_combine(G, aL, aR, bL, bR, *masks)
+        want = eng._combine_plain(aL, aR, bL, bR, *masks)
+        a = torch.cat([G.affine_packed(P) for P in got], dim=-1)
+        b = torch.cat([G.affine_packed(P) for P in want], dim=-1)
+        err = (a - b).abs().max().item()
+        errs[name] = max(errs[name], err)
+        check(err == 0, f"{name} at {lanes}: kernel != plain (max {err})")
+        ms = kernel_ms(lambda: cuda.merge_combine(G, aL, aR, bL, bR, *masks))
+        hv, single = halves(aL, aR, bL, bR, masks[1:], (lanes,))
+        hs = (masks[0], single[..., 0::2], single[..., 1::2])
+        hms = kernel_ms(lambda: cuda.merge_combine(G, *hv, *hs))
+        by_path = {path: shp.get(name, {}).get(lanes, 0)
+                   for path, (_, shp) in paths.items()}
+        for path, n in by_path.items():
+            path_ms[path] += n * ms
+            halves_path_ms[path] += n * hms
+        bms, by = bound(*merge_work(words, add_muls, lanes))
+        rows.append({"lanes": lanes, "launches_by_path": by_path, "ms": ms,
+                     "halves_ms": hms, "bound_ms": bms, "bound_by": by,
+                     "max_abs_err": err})
+    return {"shapes": rows, "path_ms": path_ms,
+            "halves_path_ms": halves_path_ms, "gap_ms": gaps(rows, paths)}
+
+
+def gaps(rows, paths):
+    """Per path, the sum over a kernel's swept shapes of launches x (ms -
+    bound_ms): the device time it spends above its bound."""
+    return {path: sum(r["launches_by_path"][path] * (r["ms"] - r["bound_ms"])
+                      for r in rows) for path in paths}
+
+
+def sweep(paths, bases, bound, errs, gen):
+    """K2-K6 at every distinct shape of the main and msm paths: each held
     against its plain version (exact canonical affine points), then its
     device time per launch (kernel_ms) and bound; per path, path_ms = sum
-    over shapes of the path's launches x ms. bases: {group: (curve, P, Q)}.
-    An add moves 9 coordinates, a chain 6."""
+    over shapes of the path's launches x ms, and gap_ms the same of ms -
+    bound_ms. bases: {group: (curve, P, Q)}.
+    An add moves 9 coordinates, a chain 6 (K6: merge_sweep)."""
     from kzg_tpu_torch.ops import cuda
     res = {}
     for name in ("g1_add", "g1_dbl", "g2_add", "g2_dbl"):
@@ -688,7 +840,11 @@ def sweep(paths, bases, bound, errs):
             rows.append({"lanes": lanes, "times": times,
                          "launches_by_path": by_path, "ms": ms,
                          "bound_ms": b, "bound_by": by, "max_abs_err": err})
-        res[name] = {"shapes": rows, "path_ms": path_ms}
+        res[name] = {"shapes": rows, "path_ms": path_ms,
+                     "gap_ms": gaps(rows, paths)}
+    for grp in ("g1", "g2"):
+        res[f"merge_combine_{grp}"] = merge_sweep(paths, *bases[grp], bound,
+                                                  errs, gen)
     return res
 
 
@@ -774,19 +930,14 @@ def phase_kernel_line(dev, paths, errs):
 
         name = f"merge_combine_{grp}"
         lanes = heaviest(shapes[name])
-        aR, bL = tiled(base_p, lanes), tiled(base_q, lanes)
-        aL, bR = tiled(base_q, lanes), tiled(base_p, lanes)
-        aL = {k: v.roll(3, dims=-1).contiguous() for k, v in aL.items()}
-        bR = {k: v.roll(5, dims=-1).contiguous() for k, v in bR.items()}
-        masks = [torch.rand(lanes, generator=gen, device=dev) < 0.5
-                 for _ in range(3)]
+        aL, aR, bL, bR, masks = merge_inputs(base_p, base_q, lanes, gen)
         eng = MSMEngine(Gc, ctx.fr, ctx.cp.r, strategy="merge")
         entry(name,
               lambda: cuda.merge_combine(Gc, aL, aR, bL, bR, *masks),
               lambda: eng._combine_plain(aL, aR, bL, bR, *masks),
-              packed_all(Gc), (7 * 3 * words * 8 + 3) * lanes,
-              add_muls * 2 * MACS_PER_MUL * lanes, {"lanes": lanes})
-    print(json.dumps({"sweep": sweep(paths, bases, bound, errs)}),
+              packed_all(Gc), *merge_work(words, add_muls, lanes),
+              {"lanes": lanes})
+    print(json.dumps({"sweep": sweep(paths, bases, bound, errs, gen)}),
           flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     line("kernels", t0, "each kernel == its plain version at the heaviest "

@@ -33,13 +33,11 @@
 // doubling at T = 3, with every thread busy in each). The subtractions
 // are exact with the slack m p of the plain version's lazy ones, so every
 // product sees the plain version's values. Outputs are re-reduced: exact
-// 16-bit limbs, value < 1.1 p. K6 (msm_merge.cu) keeps g1.cuh's
-// one-thread add.
+// 16-bit limbs, value < 1.1 p. K6 (msm_merge.cu) runs the same add
+// schedule on the same executor.
 #include "team.cuh"
 
 namespace kzg {
-
-constexpr int G1_CONST_WORDS = 3 * L + 2;  // before the team block (g1.cuh)
 
 __global__ void __launch_bounds__(256)
 g1_add_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
@@ -77,8 +75,8 @@ g1_dbl_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
 }  // namespace kzg
 
 // P, Q coordinates: int64[n_limbs, lanes] contiguous on the card; reset:
-// uint8[lanes] or null; out: int64[3, n_limbs, lanes]; consts: the G1
-// constants then the team block (ops/cuda.py _g1_consts). out = reset ? Q
+// uint8[lanes] or null; out: int64[3, n_limbs, lanes]; consts: K1's
+// modulus words then the team block (ops/cuda.py _g1_consts). out = reset ? Q
 // : P + Q per lane. Returns cudaGetLastError() after the launch, or
 // BAD_LIMBS / BAD_TABLE / the error of the table's upload.
 extern "C" int kzg_g1_add(const int64_t* px, const int64_t* py,
@@ -91,7 +89,7 @@ extern "C" int kzg_g1_add(const int64_t* px, const int64_t* py,
   static size_t attr = 0;
   const Mod M = mod_from_host(consts);
   return team_launch(
-      consts + G1_CONST_WORDS, K_ADD, (const void*)g1_add_kernel, &attr,
+      consts + CONST_WORDS, K_ADD, (const void*)g1_add_kernel, &attr,
       lanes, stream, [&](unsigned blocks, int threads, size_t smem) {
         g1_add_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
             px, py, pz, qx, qy, qz, reset, out, lanes, M);
@@ -108,7 +106,7 @@ extern "C" int kzg_g1_dbl(const int64_t* px, const int64_t* py,
   static size_t attr = 0;
   const Mod M = mod_from_host(consts);
   return team_launch(
-      consts + G1_CONST_WORDS, K_DBL, (const void*)g1_dbl_kernel, &attr,
+      consts + CONST_WORDS, K_DBL, (const void*)g1_dbl_kernel, &attr,
       lanes, stream, [&](unsigned blocks, int threads, size_t smem) {
         g1_dbl_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
             px, py, pz, out, lanes, times, M);

@@ -30,12 +30,11 @@
 // chain falls to the product rounds of its schedule (team.rounds: 7 per
 // add and 4 per doubling at T = 8), and no operand goes through a local
 // stack frame. Outputs are re-reduced: exact 16-bit limbs, each component
-// < 1.1 p. K6 (msm_merge.cu) keeps g2.cuh's one-thread add.
+// < 1.1 p. K6 (msm_merge.cu) runs the same add schedule on the same
+// executor.
 #include "team.cuh"
 
 namespace kzg {
-
-constexpr int G2_CONST_WORDS = 7 * L + 1;  // before the team block (g2.cuh)
 
 // Base element e (coordinate e / 2, component e % 2) of a G2 point whose
 // coordinates are int64[2, L, lanes]: P's in slots 0-5, Q's in 6-11.
@@ -84,8 +83,9 @@ g2_dbl_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
 }  // namespace kzg
 
 // P, Q coordinates: int64[2, n_limbs, lanes] contiguous on the card; reset:
-// uint8[lanes] or null; out: int64[3, 2, n_limbs, lanes]; consts: the G2
-// constants then the team block (ops/cuda.py _g2_consts). out = reset ?
+// uint8[lanes] or null; out: int64[3, 2, n_limbs, lanes]; consts: K1's
+// modulus words of the base field then the team block (ops/cuda.py
+// _g2_consts). out = reset ?
 // Q : P + Q per lane. Returns cudaGetLastError() after the launch, or
 // BAD_LIMBS / BAD_TABLE / the error of the table's upload.
 extern "C" int kzg_g2_add(const int64_t* px, const int64_t* py,
@@ -98,7 +98,7 @@ extern "C" int kzg_g2_add(const int64_t* px, const int64_t* py,
   static size_t attr = 0;
   const Mod M = mod_from_host(consts);
   return team_launch(
-      consts + G2_CONST_WORDS, K_ADD, (const void*)g2_add_kernel, &attr,
+      consts + CONST_WORDS, K_ADD, (const void*)g2_add_kernel, &attr,
       lanes, stream, [&](unsigned blocks, int threads, size_t smem) {
         g2_add_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
             px, py, pz, qx, qy, qz, reset, out, lanes, M);
@@ -115,7 +115,7 @@ extern "C" int kzg_g2_dbl(const int64_t* px, const int64_t* py,
   static size_t attr = 0;
   const Mod M = mod_from_host(consts);
   return team_launch(
-      consts + G2_CONST_WORDS, K_DBL, (const void*)g2_dbl_kernel, &attr,
+      consts + CONST_WORDS, K_DBL, (const void*)g2_dbl_kernel, &attr,
       lanes, stream, [&](unsigned blocks, int threads, size_t smem) {
         g2_dbl_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
             px, py, pz, out, lanes, times, M);

@@ -1,5 +1,6 @@
 // K6: the merge-strategy combine of the bucket accumulation, one launch per
-// merge level, for G1 and for G2 (one source, templated on the group).
+// merge level, for G1 and for G2 (one source, templated on the group's
+// base elements per point).
 //
 // Replaces T5, kzg_tpu/ops/msm.py:187-203 MSMEngine._bucket_sums_merge
 // `combine`, traced into one Pallas kernel per level by fuse_composite
@@ -10,163 +11,132 @@
 //   newR = (bsing & fuse) ? mid : bR
 // mid is re-reduced as the add kernels' outputs are (exact 16-bit limbs,
 // < 1.1 p per component); a lane that keeps aL or bR copies its limbs
-// unchanged, as the plain select does.
+// unchanged, as the plain select does. mid is computed on every lane, as
+// the plain version and the TPU kernel compute it.
 //
 // Bound on the card: a lane reads 4 points and 3 mask bytes and writes 3
-// points (7 x 3 coordinates), and does one complete add. At the first
-// level of a 4097-point MSM (32 x 4096 lanes) both instances are far from
-// either bound, the G2 one held back by its local-memory operands
-// (fp2.cuh). The design keeps one lane in one thread over the one-thread
-// point functions of g1.cuh and g2.cuh, so the combine costs one launch
-// per level instead of an add launch plus two select passes. The
-// selected outputs are copied back from mid's output slot rather than
-// kept live in registers: with mid live across both selections ptxas took
-// minutes on this file, without it seconds.
-#include "g1.cuh"
-#include "g2.cuh"
+// points (7 x 3 coordinates) and does one complete add (15 base products
+// for G1, 48 for G2). A 4097-point MSM runs 13 levels, from 32 x 4096
+// lanes down to 32 x 1. At the nine levels of at most 8192 lanes one
+// lane's serial chain of products sets the time; at the four widest the
+// product rate and the bytes do.
+//
+// Design: the lane teams of K2/K4 (team.cuh). A lane's aR and bL go into
+// the first slots (3 base elements per G1 point, 6 per G2 point), the team
+// runs its group's ADD schedule (kzg_tpu_torch/ops/team.py: the words,
+// values and exact-subtraction slacks K2/K4 run), and the team's ranks
+// share the 3 x 3 (G1) or 3 x 6 (G2) output elements:
+// mid from its output slots in shared memory, newL and newR from the same
+// slots where selected, else copied from aL or bR in device memory. The
+// inputs are read in place: each coordinate comes with its lane, limb and
+// component strides, so the stride-2 halves of a level's sums (aL, bL of
+// sumL; aR, bR of sumR) need no copies. A launch of at least the table's
+// WIDE lanes runs in K6's own layout (K_MERGE: G1 teams of 3, which hold
+// twice the lanes per SM and win where the product rate sets the time),
+// a narrower one in the add's (G1 teams of 6: fewer product rounds per
+// lane, which win where one lane's chain does).
+#include "team.cuh"
 
 namespace kzg {
 
-// Coordinate pointers of the four input points aL, aR, bL, bR (x, y, z
-// each), passed by value as a kernel parameter.
-struct Pts4 {
-  const int64_t* p[12];
+// The operands of one launch: the coordinate arrays of the four input
+// points aL, aR, bL, bR (x, y, z each) and the masks fuse, asing, bsing,
+// with the strides of each in elements (lane, limb, component): limb k of
+// component c of lane i of coordinate q at pt[q][c st[q][2] + k st[q][1] +
+// i st[q][0]]; mask m of lane i at mask[m][i st[12 + m][0]].
+struct MergeArgs {
+  const int64_t* pt[12];
+  const uint8_t* mask[3];
+  int64_t st[15][3];
 };
 
-struct G1Group {
-  using Point = Pt;
-  using Consts = G1Consts;
-  static constexpr int WORDS = L;               // int64 words per lane
-  static __device__ __forceinline__ void load(Point& P,
-                                              const int64_t* const* c,
-                                              int64_t lanes, int64_t i) {
-    pt_load(P, c[0], c[1], c[2], lanes, i);
+// E base elements per point (3 for G1, 6 for G2: C = E / 3 components per
+// coordinate). out: int64[3 (mid, newL, newR), E, L, lanes].
+template <int E>
+__global__ void __launch_bounds__(256)
+merge_combine_kernel(const __grid_constant__ MergeArgs a,
+                     int64_t* __restrict__ out, int64_t lanes, int kind,
+                     Mod M) {
+  constexpr int C = E / 3;
+  TeamLane t;
+  if (!team_setup(t, lanes, kind)) return;
+  const bool fuse = a.mask[0][t.i * a.st[12][0]] != 0;
+  const bool selL = fuse && a.mask[1][t.i * a.st[13][0]] != 0;
+  const bool selR = fuse && a.mask[2][t.i * a.st[14][0]] != 0;
+  for (int e = t.rank; e < 2 * E; e += t.team) {   // aR: P, bL: Q
+    const int q = 3 * (1 + e / E) + (e % E) / C;
+    team_load_at(a.pt[q] + (e % C) * a.st[q][2] + t.i * a.st[q][0],
+                 a.st[q][1], (uint32_t)e, t);
   }
-  static __device__ __forceinline__ void store(int64_t* out, const Point& P,
-                                               int64_t lanes, int64_t i) {
-    pt_store(out, P, lanes, i);
-  }
-  static __device__ __forceinline__ void add(Point& R, const Point& P,
-                                             const Point& Q,
-                                             const Consts& C) {
-    g1_add(R, P, Q, C);
-  }
-};
-
-struct G2Group {
-  using Point = Pt2;
-  using Consts = G2Consts;
-  static constexpr int WORDS = 2 * L;
-  static __device__ __forceinline__ void load(Point& P,
-                                              const int64_t* const* c,
-                                              int64_t lanes, int64_t i) {
-    pt2_load(P, c[0], c[1], c[2], lanes, i);
-  }
-  static __device__ __forceinline__ void store(int64_t* out, const Point& P,
-                                               int64_t lanes, int64_t i) {
-    pt2_store(out, P, lanes, i);
-  }
-  static __device__ __forceinline__ void add(Point& R, const Point& P,
-                                             const Point& Q,
-                                             const Consts& C) {
-    g2_add(R, P, Q, C);
-  }
-};
-
-// Copy one input point's limbs (x, y, z) into an output point slot.
-template <class G>
-__device__ __forceinline__ void copy_point(int64_t* out,
-                                           const int64_t* const* c,
-                                           int64_t lanes, int64_t i) {
-  const int64_t coord = (int64_t)G::WORDS * lanes;
+  __syncwarp(t.mask);
+  team_run(S_ADD, t, M);
+  for (int e = t.rank; e < 3 * E; e += t.team) {
+    const int j = e / E, b = e - j * E;
+    int64_t* dst = out + (int64_t)e * L * lanes + t.i;
+    if (j == 0 || (j == 1 ? selL : selR)) {
+      const int s =
+          slot_word(t, c_team.tab[TAB_OUTS + TEAM_N_OUT * O_ADD + b], 0);
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
-    for (int w = 0; w < G::WORDS; ++w)
-      out[k * coord + w * lanes + i] = c[k][w * lanes + i];
-}
-
-// out: int64[3 (mid, newL, newR), 3 (x, y, z), WORDS, lanes]. newL and
-// newR are copies of the lane's mid (read back from out) or of aL / bR, so
-// mid need not stay live after its store.
-template <class G>
-__device__ __forceinline__ void combine_lane(
-    const Pts4& in, const uint8_t* __restrict__ fuse,
-    const uint8_t* __restrict__ asing, const uint8_t* __restrict__ bsing,
-    int64_t* out, int64_t lanes, int64_t i, const typename G::Consts& C) {
-  const int64_t coord = (int64_t)G::WORDS * lanes;
-  {
-    typename G::Point aR, bL, mid;
-    G::load(aR, in.p + 3, lanes, i);
-    G::load(bL, in.p + 6, lanes, i);
-    G::add(mid, aR, bL, C);
-    G::store(out, mid, lanes, i);
+      for (int k = 0; k < L; ++k)
+        dst[(int64_t)k * lanes] = (int64_t)team_sm[s + k * t.lpb];
+    } else {
+      const int q = (j == 1 ? 0 : 9) + b / C;        // aL or bR
+      const int64_t* src =
+          a.pt[q] + (b % C) * a.st[q][2] + t.i * a.st[q][0];
+      const int64_t limb = a.st[q][1];
+#pragma unroll
+      for (int k = 0; k < L; ++k) dst[(int64_t)k * lanes] = src[k * limb];
+    }
   }
-  const int64_t* mid[3] = {out, out + coord, out + 2 * coord};
-  const bool f = fuse[i] != 0;
-  copy_point<G>(out + 3 * coord, (f && asing[i]) ? mid : in.p + 0, lanes, i);
-  copy_point<G>(out + 6 * coord, (f && bsing[i]) ? mid : in.p + 9, lanes, i);
 }
 
-__global__ void __launch_bounds__(128)
-merge_combine_g1_kernel(Pts4 in, const uint8_t* __restrict__ fuse,
-                        const uint8_t* __restrict__ asing,
-                        const uint8_t* __restrict__ bsing,
-                        int64_t* out, int64_t lanes, G1Consts C) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  combine_lane<G1Group>(in, fuse, asing, bsing, out, lanes, i, C);
-}
-
-__global__ void __launch_bounds__(128)
-merge_combine_g2_kernel(Pts4 in, const uint8_t* __restrict__ fuse,
-                        const uint8_t* __restrict__ asing,
-                        const uint8_t* __restrict__ bsing,
-                        int64_t* out, int64_t lanes, G2Consts Cp) {
-  __shared__ G2Consts C;
-  g2_consts_to_shared(C, Cp);
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  combine_lane<G2Group>(in, fuse, asing, bsing, out, lanes, i, C);
-}
-
-inline Pts4 pts4_from_host(const uint64_t* ptrs) {
-  Pts4 in;
-  for (int k = 0; k < 12; ++k) in.p[k] = (const int64_t*)ptrs[k];
-  return in;
+template <int E>
+static int merge_combine(const uint64_t* ptrs, const int64_t* strides,
+                         int64_t* out, int64_t lanes, const uint32_t* consts,
+                         int n_limbs, void* stream) {
+  if (n_limbs != L) return BAD_LIMBS;
+  MergeArgs a;
+  for (int q = 0; q < 12; ++q) a.pt[q] = (const int64_t*)ptrs[q];
+  for (int m = 0; m < 3; ++m) a.mask[m] = (const uint8_t*)ptrs[12 + m];
+  for (int q = 0; q < 15; ++q)
+    for (int k = 0; k < 3; ++k) a.st[q][k] = strides[3 * q + k];
+  static size_t attr = 0;
+  const Mod M = mod_from_host(consts);
+  const uint32_t* blk = consts + CONST_WORDS;
+  const int kind =
+      lanes >= (int64_t)blk[TEAM_CONST_WORDS + TAB_WIDE] ? K_MERGE : K_ADD;
+  return team_launch(
+      blk, kind, (const void*)merge_combine_kernel<E>, &attr, lanes, stream,
+      [&](unsigned blocks, int threads, size_t smem) {
+        merge_combine_kernel<E><<<blocks, threads, smem,
+                                  (cudaStream_t)stream>>>(a, out, lanes,
+                                                          kind, M);
+      });
 }
 
 }  // namespace kzg
 
-// ptrs: host array of 12 device pointers, the x, y, z coordinates of aL,
+// ptrs: host array of 15 device pointers, the x, y, z coordinates of aL,
 // aR, bL, bR (each int64[n_limbs, lanes] for G1, int64[2, n_limbs, lanes]
-// for G2, contiguous); fuse, asing, bsing: uint8[lanes]; out: int64[3, 3,
-// (2,) n_limbs, lanes] = mid, newL, newR. Returns cudaGetLastError().
-extern "C" int kzg_merge_combine_g1(const uint64_t* ptrs, const uint8_t* fuse,
-                                    const uint8_t* asing,
-                                    const uint8_t* bsing, int64_t* out,
+// for G2, at any strides) and the uint8[lanes] masks fuse, asing, bsing;
+// strides: host int64[15, 3], each pointer's lane, limb and component
+// strides in elements (see MergeArgs); out: int64[3, 3, (2,) n_limbs,
+// lanes] = mid, newL, newR, contiguous; consts: K1's modulus words, then
+// the team block (ops/cuda.py _g1_consts / _g2_consts). Returns
+// cudaGetLastError() after the launch, or BAD_LIMBS / BAD_TABLE / the
+// error of the table's upload.
+extern "C" int kzg_merge_combine_g1(const uint64_t* ptrs,
+                                    const int64_t* strides, int64_t* out,
                                     int64_t lanes, const uint32_t* consts,
                                     int n_limbs, void* stream) {
-  if (n_limbs != kzg::L) return kzg::BAD_LIMBS;
-  const kzg::G1Consts C = kzg::g1_from_host(consts);
-  const int threads = 128;
-  const int64_t blocks = (lanes + threads - 1) / threads;
-  kzg::merge_combine_g1_kernel<<<(unsigned)blocks, threads, 0,
-                                 (cudaStream_t)stream>>>(
-      kzg::pts4_from_host(ptrs), fuse, asing, bsing, out, lanes, C);
-  return (int)cudaGetLastError();
+  return kzg::merge_combine<3>(ptrs, strides, out, lanes, consts, n_limbs,
+                               stream);
 }
 
-extern "C" int kzg_merge_combine_g2(const uint64_t* ptrs, const uint8_t* fuse,
-                                    const uint8_t* asing,
-                                    const uint8_t* bsing, int64_t* out,
+extern "C" int kzg_merge_combine_g2(const uint64_t* ptrs,
+                                    const int64_t* strides, int64_t* out,
                                     int64_t lanes, const uint32_t* consts,
                                     int n_limbs, void* stream) {
-  if (n_limbs != kzg::L) return kzg::BAD_LIMBS;
-  const kzg::G2Consts C = kzg::g2_from_host(consts);
-  const int threads = 128;
-  const int64_t blocks = (lanes + threads - 1) / threads;
-  kzg::merge_combine_g2_kernel<<<(unsigned)blocks, threads, 0,
-                                 (cudaStream_t)stream>>>(
-      kzg::pts4_from_host(ptrs), fuse, asing, bsing, out, lanes, C);
-  return (int)cudaGetLastError();
+  return kzg::merge_combine<6>(ptrs, strides, out, lanes, consts, n_limbs,
+                               stream);
 }

@@ -12,12 +12,14 @@ kernel, each of its call sites is here a kernel written by hand for Hopper
   K4 ``g2_add``           (csrc/g2_ops.cu)    — G2 complete add with reset
                                                 mask (T2, T4, T6, T7);
   K5 ``g2_dbl``           (csrc/g2_ops.cu)    — chain of G2 doublings (T3);
-                          K2-K5 run lane teams (csrc/team.cuh) over the
-                          constant rows and schedule table of ops/team.py,
-                          which ride behind each group's constants
-                          (_g1_consts, _g2_consts);
   K6 ``merge_combine_g1`` / ``merge_combine_g2`` (csrc/msm_merge.cu) — the
                           merge strategy's per-level combine (T5).
+
+K2-K6 run lane teams (csrc/team.cuh) over the constant rows and schedule
+table of ops/team.py (K6 runs the add's schedule, in a layout of its own
+from team.MERGE_WIDE lanes up). A group's constant array is K1's modulus
+words (p, R mod p, n0: 2 L + 1 uint32 of the base field), then that team
+block (_g1_consts, _g2_consts).
 
 Each source compiles at first use with nvcc into a shared library with a
 plain C interface under ``build/kzg_tpu_torch/`` at the root of the
@@ -28,10 +30,13 @@ at once, one nvcc process each.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on torch's current stream, raises if
 the launch returned a CUDA error, and adds one to its kernel's ``launches``
-count. The plain PyTorch versions the kernels are held against live beside
-their callers: ``Field._mul_plain`` (fields/mont.py), ``Curve._add_plain`` /
-``Curve._dbl_plain`` (groups/ec.py, G1 and G2) and
-``MSMEngine._combine_plain`` (ops/msm.py).
+count. K6 reads its inputs in place where each one's batch axes flatten
+to one lane stride (the stride-2 halves of a merge level's sums) and
+copies the others. The plain PyTorch versions the kernels are held
+against live beside their callers: ``Field._mul_plain``
+(fields/mont.py), ``Curve._add_plain`` / ``Curve._dbl_plain``
+(groups/ec.py, G1 and G2) and ``MSMEngine._combine_plain``
+(ops/msm.py).
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"mont_mul": "mont_mul.cu", "g1_ops": "g1_ops.cu",
            "g2_ops": "g2_ops.cu", "msm_merge": "msm_merge.cu"}
-HEADERS = ["mont.cuh", "fp2.cuh", "g1.cuh", "g2.cuh", "team.cuh"]
+HEADERS = ["mont.cuh", "team.cuh"]
 
 
 class Kernel:
@@ -196,8 +201,8 @@ _ARGTYPES = {
     "kzg_g1_dbl": [_VP] * 4 + [_I64, _INT, _VP, _INT, _VP],
     "kzg_g2_add": [_VP] * 8 + [_I64, _VP, _INT, _VP],
     "kzg_g2_dbl": [_VP] * 4 + [_I64, _INT, _VP, _INT, _VP],
-    "kzg_merge_combine_g1": [_VP] * 5 + [_I64, _VP, _INT, _VP],
-    "kzg_merge_combine_g2": [_VP] * 5 + [_I64, _VP, _INT, _VP],
+    "kzg_merge_combine_g1": [_VP] * 3 + [_I64, _VP, _INT, _VP],
+    "kzg_merge_combine_g2": [_VP] * 3 + [_I64, _VP, _INT, _VP],
 }
 
 
@@ -225,9 +230,10 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _require(t, lead, what):
-    """A kernel operand: int64, contiguous, on the card, with the leading
-    (component and limb) axes `lead`."""
+def _require(t, lead, what, contiguous=True):
+    """A kernel operand: int64, on the card, with the leading (component
+    and limb) axes `lead`, and contiguous unless the kernel takes
+    strides."""
     if t.device.type != "cuda":
         raise RuntimeError(f"{what}: tensor on {t.device}, kernel needs cuda")
     if t.dtype != torch.int64:
@@ -235,7 +241,7 @@ def _require(t, lead, what):
     if tuple(t.shape[:len(lead)]) != tuple(lead):
         raise ValueError(f"{what}: leading (limb) axes "
                          f"{tuple(t.shape[:len(lead)])} != {tuple(lead)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
 
 
@@ -257,40 +263,28 @@ def _mod_consts(F):
 
 
 def _g1_consts(G):
-    """K1's constants, then lift16 and 3b as a small integer — the layout
-    of g1.cuh g1_from_host, 3 L + 2 words — then the lane-team block of
-    K2/K3 (team.block); K6 reads the constants alone. The kernels follow
-    Curve._add_plain / _dbl_plain on the branches those take when 3b <= 14
-    (a lazy small multiple) and 9b > 15 (a full product), as for BN254;
-    other curves raise."""
+    """K1's constants, then the lane-team block of K2/K3/K6 (team.block).
+    The schedules follow Curve._add_plain / _dbl_plain on the branches
+    those take when 3b <= 14 (a lazy small multiple) and 9b > 15 (a full
+    product), as for BN254; other curves raise."""
     F = G.F
     b3 = G._b3_int
     if not (b3 <= 14 and 3 * b3 > 15):
         raise ValueError(f"{G.name}: the G1 kernels take 3b <= 14 and "
                          f"9b > 15, not 3b = {b3}")
     return (list(F.params.limbs) + list(F.params.one_limbs) + [F.n0]
-            + F.lift_limbs(16)[0] + [b3] + team.block(G))
+            + team.block(G))
 
 
 def _g2_consts(G):
-    """K1's constants of the base field, then the exact 16-bit limbs of 2p
-    and 4p (the slacks of Fp2.mul's output subtractions) and of 16p (the
-    add's exact subtractions) and the twist's 3b' in Montgomery form, c0
-    then c1 — the layout of g2.cuh g2_from_host, 7 L + 1 words — then the
-    lane-team block of K4/K5 (team.block); K6 reads the constants alone.
-    The kernels take Fp2 with qnr = -1, as BN254's; other curves raise."""
+    """K1's constants of the base field, then the lane-team block of
+    K4/K5/K6 (team.block). The schedules take Fp2 with qnr = -1, as
+    BN254's; other curves raise."""
     F2 = G.F
     B = F2.base
     if not F2.qnr_is_m1:
         raise ValueError(f"{G.name}: the G2 kernels take qnr = -1")
-
-    def kp(k):
-        v = k * B.modulus
-        return [(v >> (16 * i)) & 0xFFFF for i in range(B.L)]
-
-    b3 = G._b3.cpu().tolist()                    # (2, L) Montgomery limbs
     return (list(B.params.limbs) + list(B.params.one_limbs) + [B.n0]
-            + kp(2) + kp(4) + kp(16) + b3[0] + b3[1]
             + team.block(G))
 
 
@@ -335,19 +329,25 @@ def _lead(G):
     return (2, G.F.base.L) if G.is_fp2 else (G.F.L,)
 
 
+def _broadcast(t, n, batch):
+    """t (n leading axes, then batch axes) broadcast to `batch` the way the
+    field ops broadcast (batch axes after the limb axes), contiguous."""
+    t = t.reshape(t.shape[:n] + (1,) * (len(batch) + n - t.ndim)
+                  + t.shape[n:])
+    return t.expand(t.shape[:n] + batch).contiguous()
+
+
 def _points(G, pts, what):
     """The x, y, z coordinates of the point dicts `pts`, broadcast over one
-    batch shape the way the field ops broadcast (batch axes after the limb
-    axes), contiguous and checked. Returns (coordinates, batch, lanes)."""
+    batch shape, contiguous and checked. Returns (coordinates, batch,
+    lanes)."""
     lead = _lead(G)
     n = len(lead)
     coords = [P[k] for P in pts for k in ("x", "y", "z")]
     batch = tuple(torch.broadcast_shapes(*[t.shape[n:] for t in coords]))
     out = []
     for t in coords:
-        t = t.reshape(t.shape[:n] + (1,) * (len(batch) + n - t.ndim)
-                      + t.shape[n:])
-        t = t.expand(t.shape[:n] + batch).contiguous()
+        t = _broadcast(t, n, batch)
         _require(t, lead, what)
         out.append(t)
     return out, batch, math.prod(batch)
@@ -359,6 +359,33 @@ def _mask(m, batch, dev, what):
     if m.dtype != torch.bool:
         raise TypeError(f"{what}: masks must be bool, not {m.dtype}")
     return m.expand(batch).contiguous().view(torch.uint8)
+
+
+def _lane_stride(shape, strides):
+    """The one stride that steps a lane through batch axes `shape` (with
+    `strides`) flattened in order, or None where they do not flatten to
+    one."""
+    lane = step = None
+    for n, s in zip(reversed(shape), reversed(strides)):
+        if n == 1:
+            continue
+        if lane is None:
+            lane = s
+        elif s != step:
+            return None
+        step = s * n
+    return 1 if lane is None else lane
+
+
+def _in_place(t, n, batch):
+    """An operand of K6 with n leading axes: t itself where its batch axes
+    are `batch` and flatten to one lane stride, else a contiguous copy
+    broadcast to `batch`; and its lane stride."""
+    lane = (_lane_stride(t.shape[n:], t.stride()[n:])
+            if tuple(t.shape[n:]) == batch else None)
+    if lane is None:
+        return _broadcast(t, n, batch), 1
+    return t, lane
 
 
 def _unpack(out, batch):
@@ -430,19 +457,38 @@ def merge_combine(G, aL, aR, bL, bR, fuse, asing, bsing):
     """K6 (G1 or G2 instance by the curve): one merge level's combine,
     mid = aR + bL, newL = (asing & fuse) ? mid : aL, newR = (bsing & fuse)
     ? mid : bR per lane. Point dicts and bool masks on the card over one
-    batch; returns (mid, newL, newR)."""
+    batch; returns (mid, newL, newR). Inputs whose batch axes flatten to
+    one lane stride (a merge level's stride-2 halves) are read in place."""
     name = "merge_combine_g2" if G.is_fp2 else "merge_combine_g1"
-    c, batch, lanes = _points(G, (aL, aR, bL, bR), name)
-    dev = c[0].device
-    out = torch.empty((3, 3) + _lead(G) + (lanes,), dtype=torch.int64,
+    lead = _lead(G)
+    n = len(lead)
+    coords = [P[k] for P in (aL, aR, bL, bR) for k in ("x", "y", "z")]
+    batch = tuple(torch.broadcast_shapes(*[t.shape[n:] for t in coords]))
+    lanes = math.prod(batch)
+    ops, strides = [], []
+    for t in coords:
+        t, lane = _in_place(t, n, batch)
+        _require(t, lead, name, contiguous=False)
+        st = t.stride()
+        ops.append(t)
+        strides += [lane, st[n - 1], st[0] if n == 2 else 0]
+    dev = ops[0].device
+    out = torch.empty((3, 3) + lead + (lanes,), dtype=torch.int64,
                       device=dev)
     if lanes > 0:
-        masks = [_mask(m, batch, dev, name) for m in (fuse, asing, bsing)]
-        ptrs = (ctypes.c_uint64 * 12)(*[t.data_ptr() for t in c])
+        for m in (fuse, asing, bsing):
+            m = torch.as_tensor(m, device=dev)
+            if m.dtype != torch.bool:
+                raise TypeError(f"{name}: masks must be bool, not {m.dtype}")
+            m, lane = _in_place(m, 0, batch)
+            ops.append(m.view(torch.uint8))
+            strides += [lane, 0, 0]
+        ptrs = (ctypes.c_uint64 * 15)(*[t.data_ptr() for t in ops])
+        st = (ctypes.c_int64 * 45)(*strides)
         kern = KERNELS[name]
         fn = getattr(_lib(kern.lib), "kzg_" + name)
-        _check(fn(ctypes.cast(ptrs, _VP), *[m.data_ptr() for m in masks],
-                  out.data_ptr(), lanes, _consts(G), _lead(G)[-1],
-                  _stream()), name)
+        _check(fn(ctypes.cast(ptrs, _VP), ctypes.cast(st, _VP),
+                  out.data_ptr(), lanes, _consts(G), lead[-1], _stream()),
+               name)
         kern.count(lanes)
     return tuple(_unpack(out[j], batch) for j in range(3))

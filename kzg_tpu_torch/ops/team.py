@@ -1,8 +1,8 @@
 """Schedules of the lane-team kernels K2/K3 (G1 complete add and doubling
-chain) and K4/K5 (G2), as data.
+chain), K4/K5 (G2) and K6 (the merge combine of either group), as data.
 
-The four kernels (csrc/team.cuh) give each lane of a point batch to a team
-of threads inside one warp. The point, the constants and every
+The kernels (csrc/team.cuh) give each lane of a point batch to a team of
+threads inside one warp. The point, the constants and every
 intermediate live in the block's shared memory as base-field *slots* (17
 uint32 limbs each); the formula runs in *levels*. In a level every
 instruction is independent of the others, team rank r executes
@@ -30,9 +30,13 @@ This module builds each group's four schedules (the add, the add of a
 reset lane, one doubling, the re-reduction after a chain), places each
 level's instructions, allocates slots by liveness, and encodes all of it,
 behind the constant rows the instructions read, as the uint32 *block* that
-ops/cuda.py appends to the group's constant array. The kernels execute
-that block; ``run`` executes the same words with the base field's plain
-ops, which the CPU tests hold against the plain versions.
+ops/cuda.py appends to K1's modulus words in the group's constant array.
+The kernels execute that block: K2/K4 and K6 the add (K6 then makes the
+merge's selects from its output slots, in a layout of its own from
+MERGE_WIDE lanes up), K3/K5 the doubling and the re-reduction. ``run``
+executes the same words with the base field's plain ops (``plain_add``,
+``plain_dbl``, ``plain_merge``), which the CPU tests hold against the
+plain versions.
 """
 
 from __future__ import annotations
@@ -47,12 +51,19 @@ ONE, C1, C2 = 240, 241, 242   # R mod p; G2 the twist's 3b' c0 and c1, G1
 #                               9b in Montgomery form (C1)
 ROWS = 8                      # constant rows: 3 slots, then 5 EXACT slacks
 ADD, RESET, DBL, FRESH = range(4)    # the schedules, in table order
-ADD_KERNEL = (ADD, RESET)            # K2/K4 run these, K3/K5 DBL and FRESH
+ADD_KERNEL = (ADD, RESET)            # K2/K4 run these (K6 ADD), K3/K5 DBL
+#                                      and FRESH
 N_OUT = 6                            # output slot room per list (header)
-HDR = 34                             # header words of the table
+KINDS = 3                            # kernel kinds: add, doubling, merge
+WIDE, LEVELS, INSTRS = 9, 10, 11     # header words after the layouts,
+RANGES, OUTS = 12, 20                # then the ranges and output slots
+HDR = OUTS + 3 * N_OUT               # header words of the table
 # Lane-team layouts, (threads per team, warps per block) of the add kernel
-# and of the doubling kernel, from team_sweep.py on the H100 (PERF.md)
-LAYOUT = {"g1": ((6, 4), (3, 2)), "g2": ((8, 2), (8, 2))}
+# (K2/K4), of the doubling kernel (K3/K5) and of the merge kernel (K6) at
+# MERGE_WIDE lanes and more (narrower K6 launches take the add's), from
+# team_sweep.py on the H100 (PERF.md)
+LAYOUT = {"g1": ((6, 4), (3, 2), (3, 2)), "g2": ((8, 2), (8, 2), (8, 2))}
+MERGE_WIDE = 8192
 KP2 = (0, 2, 4, 16, 32)              # G2 EXACT slacks, multiples of p
 
 
@@ -395,7 +406,7 @@ def _table(key, layout):
         progs = (_g1_add(b3, m16, kps), _g1_reset(kps),
                  _g1_dbl(b3, m32, kps), _g1_fresh(kps))
     levels, instrs, ranges, outs = [], [], [], []
-    n_slots = [0, 0]
+    n_slots = [0, 0, 0]
     for sched, (pg, inputs, out, pinned) in enumerate(progs):
         kernel = 0 if sched in ADD_KERNEL else 1
         lv, n_lv = _levels(pg, layout[kernel][0])
@@ -415,8 +426,9 @@ def _table(key, layout):
                                | na << 22 | nb << 25 | kp << 28, wa, wb))
         if sched != DBL:
             outs += [slot[n] for n in out] + [0] * (N_OUT - len(out))
-    words = [v for k in range(2) for v in (*layout[k], n_slots[k])]
-    words += [len(levels), len(instrs)]
+    n_slots[2] = n_slots[0]                  # K6 runs the add's schedule
+    words = [v for k in range(KINDS) for v in (*layout[k], n_slots[k])]
+    words += [MERGE_WIDE, len(levels), len(instrs)]
     words += [v for r in ranges for v in r] + outs + levels
     words += [w for ins in instrs for w in ins]
     return tuple(words)
@@ -425,14 +437,17 @@ def _table(key, layout):
 def table(G, layout=None):
     """The encoded schedules of G's group (G1 or G2) for lane-team layouts
     `layout` = ((threads per team, warps per block) of the add kernel, the
-    same of the doubling kernel), default LAYOUT; uint32 words:
-      [0] [1] [2]: threads per team, warps per block and slots per lane
-          of the add kernel (ADD, RESET); [3] [4] [5]: the same of the
-          doubling kernel (DBL, FRESH),
-      [6] levels, [7] instructions,
-      [8 + 2 s], [9 + 2 s]: first and end level of schedule s (ADD, RESET,
-          DBL, FRESH),
-      [16 ...]: the output slots of ADD, RESET and FRESH (N_OUT each; G1
+    same of the doubling kernel and of the merge kernel), default LAYOUT;
+    uint32 words:
+      [3 k], [3 k + 1], [3 k + 2]: threads per team, warps per block and
+          slots per lane of kernel kind k: the add kernel (ADD, RESET), the
+          doubling kernel (DBL, FRESH), the merge kernel (ADD, at WIDE
+          lanes and more),
+      [WIDE] the narrowest K6 launch that takes the merge kernel's layout,
+      [LEVELS] levels, [INSTRS] instructions,
+      [RANGES + 2 s], [RANGES + 2 s + 1]: first and end level of schedule
+          s (ADD, RESET, DBL, FRESH),
+      [OUTS ...]: the output slots of ADD, RESET and FRESH (N_OUT each; G1
           uses 3, the rest 0),
       then one word per level: first instruction | count << 16,
       then three words per instruction:
@@ -487,9 +502,10 @@ def rounds(words):
 # ----------------------------------------------------------------------
 
 def _decode(words):
-    n_lv, n_ins = words[6:8]
-    ranges = [tuple(words[8 + 2 * s:10 + 2 * s]) for s in range(4)]
-    outs = [list(words[16 + N_OUT * i:16 + N_OUT * (i + 1)])
+    n_lv, n_ins = words[LEVELS], words[INSTRS]
+    ranges = [tuple(words[RANGES + 2 * s:RANGES + 2 * s + 2])
+              for s in range(4)]
+    outs = [list(words[OUTS + N_OUT * i:OUTS + N_OUT * (i + 1)])
             for i in range(3)]
     lv = words[HDR:HDR + n_lv]
     ins = words[HDR + n_lv:HDR + n_lv + 3 * n_ins]
@@ -611,3 +627,13 @@ def plain_dbl(G, P, times, blk=None, stats=None):
         slots = run(B, blk, DBL, slots, stats)
     slots = run(B, blk, FRESH, slots, stats)
     return _join(G, [slots[s] for s in _out(FRESH, blk[ROWS * B.L:], n)])
+
+
+def plain_merge(G, aL, aR, bL, bR, fuse, asing, bsing, blk=None):
+    """K6's program: the add's schedule over (aR, bL) by `run` gives mid;
+    newL = (fuse & asing) ? mid : aL, newR = (fuse & bsing) ? mid : bR,
+    the kept lanes' limbs unchanged."""
+    mid = plain_add(G, aR, bL, blk=blk)
+    newL = G.select(torch.logical_and(fuse, asing), mid, aL)
+    newR = G.select(torch.logical_and(fuse, bsing), mid, bR)
+    return mid, newL, newR

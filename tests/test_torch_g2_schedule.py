@@ -159,9 +159,11 @@ def test_dbl_schedule_matches_plain(grp, times, monkeypatch):
 
 def _fits(w):
     """The table's words fit the kernels' constant image (team.cuh
-    TEAM_WORDS = 768, slot ids below 240)."""
-    assert team.HDR + w[6] + 3 * w[7] == len(w) <= 768
-    assert w[2] < team.CONST0 and w[5] < team.CONST0
+    TEAM_WORDS = 768, slot ids below 240); the merge kernel (K6) has the
+    add's slots."""
+    assert team.HDR + w[team.LEVELS] + 3 * w[team.INSTRS] == len(w) <= 768
+    assert w[2] < team.CONST0 and w[5] < team.CONST0 and w[8] == w[2]
+    assert w[team.WIDE] == team.MERGE_WIDE
 
 
 def test_table_fits_the_kernel():
@@ -171,7 +173,8 @@ def test_table_fits_the_kernel():
     re-reduction, ceil(27 / 8) = 4 per doubling."""
     J = get_context("BN254", "cpu").g2
     w = team.table(J)
-    assert (w[0:2], w[3:5]) == team.LAYOUT["g2"] == ((8, 2), (8, 2))
+    assert (w[0:2], w[3:5], w[6:8]) == team.LAYOUT["g2"] == (
+        (8, 2), (8, 2), (8, 2))
     _fits(w)
     assert team.rounds(w) == [7, 1, 4, 1]
 
@@ -185,7 +188,7 @@ def test_g1_table_fits_the_kernel():
     J = get_context("BN254", "cpu").g1
     F = J.F
     w = team.table(J)
-    assert (w[0:2], w[3:5]) == team.LAYOUT["g1"]
+    assert (w[0:2], w[3:5], w[6:8]) == team.LAYOUT["g1"]
     _fits(w)
     assert team.rounds(w) == [3, 1, 3, 1]
     rows = team.rows(J)
