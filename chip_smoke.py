@@ -6,9 +6,11 @@
 Phases (each prints one line with what it checked and its time; any
 mismatch or exception exits non-zero before the result line):
   1. build   — compiles the port's CUDA sources with nvcc for sm_90a, one
-               process each, all started together, prints each kernel's
-               ptxas register and spill lines and the card's name and power
-               limit;
+               process per source and limb count (all four at 17 limbs,
+               mont_mul, g1_ops and g2_ops again at 25 limbs for
+               BLS12-381's Fp), all started together, prints each build's
+               ptxas register, stack and spill lines and the card's name and
+               power limit;
   2. kernels — K1 (Montgomery multiply) at 4096, 131072 and 811008 lanes on
                Fp and Fr with lazy input limbs; K2/K4 (G1/G2 complete add,
                with and without reset mask) and K3/K5 (G1/G2 doubling chain,
@@ -22,17 +24,24 @@ mismatch or exception exits non-zero before the result line):
                against its plain PyTorch version on the same card tensors
                (exact equality of limbs or of canonical affine points),
                outputs checked fresh (exact 16-bit limbs, < 1.1p) and
-               sampled lanes against python-int arithmetic;
-  3. golden  — reproduces the BN254 golden bytes of
-               tests/fixtures/golden/ from the 48-term setup file, verifies
-               the whole-message proof and refutes a changed byte;
+               sampled lanes against python-int arithmetic; then the same
+               checks on BLS12-381 (K6 aside, which is built for 17 limbs
+               only): K1 at 25 limbs on Fp, with lanes whose inputs reach
+               the G1 add's widest product operands (12 x 247 p with limbs
+               up to 786,420, times ~248 p), and the 17-limb K1 on
+               BLS12-381's Fr; K2-K5 at 25 limbs (K2's products reach
+               ~2964 p, checked on the plain schedule's statistics);
+  3. golden  — reproduces the BN254 and the BLS12-381 golden bytes of
+               tests/fixtures/golden/ from their 48-term setup files,
+               verifies the whole-message proof and refutes a changed
+               byte;
   4. main    — the main path of bench.py at full size: from_secret setup of
                5000 terms (with its oracle self-check), from_blob of 4097
                characters (degree 4096), create_commit, create_proof(p, 0, 1),
                verify_proof true and a one-bit refutation false; cold times,
                warm medians and each kernel's launches on the path (K1-K5
-               must all run); then one warm commit, proof and verify under
-               torch.profiler (device time, busy share, launches and the
+               must all run); then one warm from_blob, commit, proof and
+               verify under torch.profiler (device time, busy share, launches and the
                kernels that take the most device time);
   5. msm     — the merge strategy's path (msm over arbitrary bases, the
                JAX package's TPU path for msm), on the main phase's setup
@@ -42,19 +51,30 @@ mismatch or exception exits non-zero before the result line):
                chunked; cold time, warm median and launches per call (K6
                must run); then one warm merge msm call per group under
                torch.profiler (device time, busy share, launches);
-  6. kernels line — each kernel held against its plain version once more at
+  6. main_bls — the main path again on BLS12-381 (the curve of the
+               reference's three-curve harness) at the same sizes, with its
+               own main_path_bls and profile_bls JSON lines; K1 (17 limbs,
+               Fr: the NTT butterflies and the pairing's tower products are
+               Fp products at 25), K1-K5 at 25 limbs must all run;
+  7. kernels line — each kernel held against its plain version once more at
                the heaviest shape its path gave it, then one JSON object:
-               each kernel's launches on the main and msm paths, its
-               largest error against the plain version, its device time per
-               launch, the plain version's time per call, and the bound at
-               that shape; before it the "sweep" line: K2-K6 held
-               against their plain versions and timed at every distinct
-               shape the two paths launched, with each path's device time
-               in the kernel (path_ms = sum of launches x ms) and above
-               its bound (gap_ms = sum of launches x (ms - bound)); K6 also
-               timed from a merge level's stride-2 halves, the wrapper's
-               copies included (halves_ms, halves_path_ms).
+               each kernel's launches on the main and msm paths (the
+               BLS12-381 entries: on main_bls), its largest error against
+               the plain version, its device time per launch, the plain
+               version's time per call, and the bound at that shape; before
+               it the "sweep" line: K2-K6 held against their plain versions
+               and timed at every distinct shape the two paths launched, and
+               K2-K5 at 25 limbs at every shape main_bls launched, with each
+               path's device time in the kernel (path_ms = sum of launches x
+               ms) and above its bound (gap_ms = sum of launches x (ms -
+               bound)); K6 also timed from a merge level's stride-2 halves,
+               the wrapper's copies included (halves_ms, halves_path_ms).
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+
+    python3 chip_smoke.py --main-only
+
+runs phase 4 alone on BN254 (main_path and profile lines, no result
+line).
 """
 
 import json
@@ -81,6 +101,15 @@ MSM_POINTS = DEGREE + 1                  # the merge msm of the msm phase
 MSM_SCAN_POINTS = 256                    # its log and scan strategies
 MAIN_KERNELS = ("mont_mul", "g1_add", "g1_dbl", "g2_add", "g2_dbl")
 MSM_KERNELS = ("merge_combine_g1", "merge_combine_g2")
+BLS = "BLS12381"
+LIMBS = (17, 25)                         # the limb counts the port builds
+# the kernels of the BLS12-381 main path, by their launch counters: K1 at
+# 17 limbs on Fr, K1-K5 at 25 limbs on Fp
+BLS_KERNELS = ("mont_mul", "mont_mul@25", "g1_add@25", "g1_dbl@25",
+               "g2_add@25", "g2_dbl@25")
+# the kernel line's entries of the BLS12-381 path: name -> launch counter
+BLS_ENTRIES = {"mont_mul (BLS12-381 Fr)": "mont_mul",
+               **{k: k for k in BLS_KERNELS[1:]}}
 # published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores (67 TFLOP/s, an FMA counted as two
 # operations), taken as the ceiling for the kernels' integer
@@ -88,7 +117,12 @@ MSM_KERNELS = ("merge_combine_g1", "merge_combine_g2")
 # 32-bit integer multiply rate is lower, so this bound is optimistic
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
-MACS_PER_MUL = 2 * 17 * 17 + 17          # product + reduction, per lane
+
+
+def macs_per_mul(L):
+    """16-bit multiply-accumulates of one L-limb Montgomery product:
+    product plus reduction."""
+    return 2 * L * L + L
 
 
 def check(cond, msg):
@@ -176,8 +210,9 @@ def smi():
 
 def lazy_limbs(F, lanes, gen):
     """(L, lanes) int64 limbs at the mul input contract's edges: values up
-    to ~9 * 2^256 (< 64 p for BN254) with limbs up to ~2^22 (random
-    borrows of up to 63 * 2^16 from the limb above)."""
+    to ~9 * 2^(16 (L - 1)) (< 64 p for BN254, < 90 p for BLS12-381's Fp)
+    with limbs up to ~2^22 (random borrows of up to 63 * 2^16 from the limb
+    above)."""
     dev = F.device
     L = F.L
     x = torch.randint(0, 1 << 16, (L, lanes), generator=gen, device=dev)
@@ -247,11 +282,16 @@ def same_points(G, A, B, what, name, errs):
     return pa
 
 
+def p_of(G):
+    """The base field's modulus of group G."""
+    return G.F.base.modulus if G.is_fp2 else G.F.modulus
+
+
 def fresh_points(G, A, what):
     """Kernel output coordinates: exact 16-bit limbs, each component
     < 1.1 p (first 64 lanes by value)."""
     from kzg_tpu_torch.fields.mont import limbs_to_ints
-    p = G.F.base.modulus if G.is_fp2 else G.F.modulus
+    p = p_of(G)
     for k in ("x", "y", "z"):
         check(int(A[k].max()) <= 0xFFFF, f"{what}: limbs above 16 bits")
         comps = [A[k][0], A[k][1]] if G.is_fp2 else [A[k]]
@@ -267,60 +307,104 @@ def fresh_points(G, A, what):
 def phase_build():
     from kzg_tpu_torch.ops import cuda
     t0 = time.time()
-    secs = cuda.build()
+    secs = cuda.build(limbs=LIMBS)
     card = smi()
-    for name in cuda.SOURCES:
-        for ln in cuda.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"[build] {name}: {ln.strip()}")
+    for L in LIMBS:
+        for name in cuda.LIMB_SOURCES[L]:
+            for ln in cuda.build_log(name, L).splitlines():
+                if "registers" in ln or "spill" in ln or "stack" in ln:
+                    print(f"[build] {cuda.kernel_key(name, L)}: "
+                          f"{ln.strip()}")
     line("build", t0, "nvcc sm_90a built in parallel, seconds to each "
          f"finish: { {k: round(v, 1) for k, v in secs.items()} }; card: "
          f"{card}")
     return card
 
 
-def phase_kernels(dev, errs):
-    """Each kernel against its plain version on the same card tensors."""
-    from kzg_tpu_torch.context import get_context
+def k1_entry(curve, F):
+    """The kernel line's entry of K1 on field F of `curve`."""
     from kzg_tpu_torch.ops import cuda
+    if curve == BLS and F.L == cuda.BASE_L:
+        return "mont_mul (BLS12-381 Fr)"
+    return cuda.kernel_key("mont_mul", F.L)
+
+
+def wide_operands(F, lanes, rng):
+    """(L, lanes) limbs of the BLS12-381 G1 add's widest product inputs
+    (its G = 3b (X1Z2 + X2Z1) = 12 t5, t5 < 248 p with exact limbs, times
+    a value below 248 p): a up to ~2976 p with limbs up to 12 x 65535 =
+    786,420, a b up to ~1.15 R p."""
+    from kzg_tpu_torch.fields.mont import ints_to_limbs
+    p = F.modulus
+    t5 = [rng.randrange(246 * p, 248 * p) for _ in range(lanes)]
+    b = [rng.randrange(246 * p, 248 * p) for _ in range(lanes)]
+    a = torch.from_numpy(12 * ints_to_limbs(t5, F.L).astype("int64"))
+    b = torch.from_numpy(ints_to_limbs(b, F.L).astype("int64"))
+    return a.to(F.device), b.to(F.device)
+
+
+def phase_kernels(dev, errs, curve="BN254"):
+    """Each kernel against its plain version on the same card tensors, on
+    `curve`'s fields and groups (K6 where it is built for their limb
+    count)."""
+    from kzg_tpu_torch.context import get_context
+    from kzg_tpu_torch.ops import cuda, team
     from kzg_tpu_torch.ops.msm import MSMEngine
-    ctx = get_context("BN254", dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    rng = random.Random(SEED)
+    ctx = get_context(curve, dev)
+    seed = SEED if curve == "BN254" else SEED + 7
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = random.Random(seed)
+    L = ctx.fp.L
 
     # K1 ---------------------------------------------------------------
     t0 = time.time()
     for F in (ctx.fp, ctx.fr):
         p = F.modulus
-        rinv = pow(1 << (16 * F.L), -1, p)
+        R = 1 << (16 * F.L)
+        rinv = pow(R, -1, p)
+        name = k1_entry(curve, F)
         for lanes in K1_LANES:
             a = lazy_limbs(F, lanes, gen)
             b = lazy_limbs(F, lanes, gen)
+            wide = 0
+            if curve == BLS and F is ctx.fp:      # the G1 add's widest
+                wide = 64
+                a[:, -wide:], b[:, -wide:] = wide_operands(F, wide, rng)
             k = cuda.mont_mul(F, a, b)
             ref = F._mul_plain(a, b)
             sync()
             err = (k - ref).abs().max().item()
-            errs["mont_mul"] = max(errs["mont_mul"], err)
-            check(err == 0, f"K1 lanes={lanes}: kernel != plain (max {err})")
+            errs[name] = max(errs[name], err)
+            check(err == 0, f"K1 {name} lanes={lanes}: kernel != plain "
+                  f"(max {err})")
             check(int(k.max()) <= 0xFFFF, "K1 output limbs above 16 bits")
             ck, cr = F.canon(k), F.canon(ref)
             check(torch.equal(ck, cr), f"K1 lanes={lanes}: canon mismatch")
             kh, ah, bh = k.cpu(), a.cpu(), b.cpu()
-            for i in [0, 1, 2] + rng.sample(range(lanes), 125):
+            lanes_checked = [0, 1, 2] + rng.sample(range(lanes - wide), 125)
+            for i in lanes_checked + list(range(lanes - wide, lanes)):
                 va, vb, vk = to_int(ah[:, i]), to_int(bh[:, i]), \
                     to_int(kh[:, i])
-                check(vk < p + p // 10, f"K1 lane {i}: value >= 1.1p")
+                check(vk * R < va * vb + R * p, f"K1 lane {i}: value >= "
+                      "a b / R + p")
+                check(i >= lanes - wide or vk < p + p // 10,
+                      f"K1 lane {i}: value >= 1.1p")
                 check(vk % p == va * vb * rinv % p,
                       f"K1 lane {i}: not a*b*R^-1 mod p")
-    line("kernels", t0, "K1 mont_mul == plain (bit-exact limbs, canonical "
-         f"values, 128 lanes vs python ints) at {K1_LANES} lanes, Fp and Fr, "
-         "lazy inputs up to 2^22 limbs")
+    line("kernels", t0, f"{curve} K1 mont_mul (Fp: {k1_entry(curve, ctx.fp)}"
+         f", Fr: {k1_entry(curve, ctx.fr)}) == plain (bit-exact limbs, "
+         f"canonical values, 128 lanes vs python ints) at {K1_LANES} lanes, "
+         "lazy inputs up to 2^22 limbs"
+         + (", 64 lanes per width at the G1 add's widest operands (output "
+            "< a b / R + p)" if curve == BLS else ""))
 
     # K2 / K3 and K4 / K5 ------------------------------------------------
     lanes = K23_LANES
-    for G, inputs, add, dbl, kadd, kdbl in (
-            (ctx.g1, g1_inputs, cuda.g1_add, cuda.g1_dbl, "g1_add", "g1_dbl"),
-            (ctx.g2, g2_inputs, cuda.g2_add, cuda.g2_dbl, "g2_add", "g2_dbl")):
+    for G, inputs, add, dbl, grp in (
+            (ctx.g1, g1_inputs, cuda.g1_add, cuda.g1_dbl, "g1"),
+            (ctx.g2, g2_inputs, cuda.g2_add, cuda.g2_dbl, "g2")):
+        kadd = cuda.kernel_key(f"{grp}_add", L)
+        kdbl = cuda.kernel_key(f"{grp}_dbl", L)
         t0 = time.time()
         P, Q, pts_p, pts_q, og = inputs(ctx, lanes, rng)
         sample = rng.sample(range(lanes), 16) + list(range(8))
@@ -348,11 +432,25 @@ def phase_kernels(dev, errs):
             for i in sample:
                 check(got[i] == og.mul(1 << times, pts_p[i]),
                       f"{kdbl} times={times} lane {i} vs oracle")
+        widest = ""
+        if not G.is_fp2:       # the largest product input of the schedule
+            stats = {}
+            team.plain_add(G, {c: v[..., :64] for c, v in P.items()},
+                           {c: v[..., :64] for c, v in Q.items()},
+                           stats=stats)
+            p = p_of(G)
+            check(curve != BLS or stats["value"] > 2900 * p,
+                  f"{kadd}: the checked adds miss the widest operands")
+            widest = (f"; K2's product inputs reach {stats['value'] / p:.1f}"
+                      f" p, limbs {stats['limb']}, a b = "
+                      f"{stats['ab'] / (p << (16 * L)):.3f} R p")
         line("kernels", t0, f"{kadd} (with/without reset mask) and {kdbl} "
              f"(times 1, 8) == plain as canonical affine points over {lanes} "
              "lanes incl. infinity/doubling/negation; outputs exact 16-bit, "
-             "< 1.1p; 24 lanes vs oracle")
+             f"< 1.1p; 24 lanes vs oracle{widest}")
         edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs)
+        if "msm_merge" not in cuda.LIMB_SOURCES[L]:
+            continue
 
         # K6 on the same group: aR, bL = P, Q; aL, bR a second pair
         t0 = time.time()
@@ -397,8 +495,10 @@ def edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs):
     from kzg_tpu_torch.ops import cuda
     t0 = time.time()
     grp = "g2" if G.is_fp2 else "g1"
-    kadd, kdbl = f"{grp}_add", f"{grp}_dbl"
-    add, dbl = getattr(cuda, kadd), getattr(cuda, kdbl)
+    add, dbl = getattr(cuda, f"{grp}_add"), getattr(cuda, f"{grp}_dbl")
+    L = G.F.base.L if G.is_fp2 else G.F.L
+    kadd = cuda.kernel_key(f"{grp}_add", L)
+    kdbl = cuda.kernel_key(f"{grp}_dbl", L)
     for n in EDGE_LANES:
         Pn = {k: v[..., :n].contiguous() for k, v in P.items()}
         Qn = {k: v[..., :n].contiguous() for k, v in Q.items()}
@@ -488,13 +588,13 @@ def merge_edge_widths(G, aL, aR, bL, bR, errs):
          "< 1.1p")
 
 
-def phase_golden(dev):
+def phase_golden(dev, curve="BN254"):
     import kzg_tpu_torch as kzg
     t0 = time.time()
     gold = os.path.join(HERE, "tests", "fixtures", "golden")
-    with open(os.path.join(gold, "golden_BN254.json")) as f:
+    with open(os.path.join(gold, f"golden_{curve}.json")) as f:
         vec = json.load(f)
-    kzg.init("BN254", device=dev)
+    kzg.init(curve, device=dev)
     ts = kzg.trusted_setup(os.path.join(gold, vec["setup_file"]))
     msg = vec["message"]
     p = kzg.poly.from_blob(kzg.blob.from_string(msg))
@@ -513,15 +613,20 @@ def phase_golden(dev):
     bad = msg[:5] + chr(ord(msg[5]) ^ 1) + msg[6:]
     check(not ts.verify_proof(c, got, kzg.blob.from_string(
         bad[off:off + ln], off)), "golden refutation")
-    line("golden", t0, f"BN254 golden poly/commit/{len(vec['proofs'])} proof "
-         "bytes reproduced from the 48-term file; verify true, refutation "
-         "false")
+    line("golden", t0, f"{curve} golden poly/commit/{len(vec['proofs'])} "
+         "proof bytes reproduced from the 48-term file; verify true, "
+         "refutation false")
 
 
-def phase_main(dev, card):
+def phase_main(dev, card, curve="BN254"):
+    """bench.py's path on `curve`; its JSON lines are main_path and profile
+    on BN254, main_path_bls and profile_bls on BLS12-381."""
     import kzg_tpu_torch as kzg
     from kzg_tpu_torch.ops import cuda
-    kzg.init("BN254", device=dev)
+    label = "main" if curve == "BN254" else "main_bls"
+    sfx = "" if curve == "BN254" else "_bls"
+    required = MAIN_KERNELS if curve == "BN254" else BLS_KERNELS
+    kzg.init(curve, device=dev)
     random.seed(1)                       # bench.py's message
     data = "".join(chr(random.randrange(32, 127)) for _ in range(DEGREE + 1))
     per_op = {}
@@ -553,27 +658,30 @@ def phase_main(dev, card):
     check(refuted, "main-path one-bit refutation is false")
     launches = cuda.counts()
     shapes = {k: dict(v.shapes) for k, v in cuda.KERNELS.items()}
-    for name in MAIN_KERNELS:
-        check(launches[name] > 0, f"kernel {name} not launched on the main "
-              "path")
-    line("main", t_all, f"setup({SETUP_TERMS}) {setup_ms:.0f} ms incl. "
-         f"self-check, from_blob(deg {DEGREE}) {blob_ms:.0f} ms; verify true, "
-         f"refutation false; launches {launches}")
+    for name in required:
+        check(launches[name] > 0, f"kernel {name} not launched on the "
+              f"{label} path")
+    line(label, t_all, f"{curve} setup({SETUP_TERMS}) {setup_ms:.0f} ms "
+         f"incl. self-check, from_blob(deg {DEGREE}) {blob_ms:.0f} ms; verify "
+         f"true, refutation false; launches {launches}")
 
     _, _, commit_ms = host_ms(lambda: ts.create_commit(p), WARM_RUNS)
     _, _, proof_ms = host_ms(lambda: ts.create_proof(p, 0, 1), WARM_RUNS)
     _, _, verify_ms = host_ms(lambda: ts.verify_proof(c, pr, good), WARM_RUNS)
-    print(json.dumps({"main_path": {
-        "card": card, "setup_ms": setup_ms, "from_blob_ms": blob_ms,
+    print(json.dumps({f"main_path{sfx}": {
+        "card": card, "curve": curve, "setup_ms": setup_ms,
+        "from_blob_ms": blob_ms,
         "commit_cold_ms": commit_cold, "commit_warm_median_ms": commit_ms,
         "proof_cold_ms": proof_cold, "proof_warm_median_ms": proof_ms,
         "verify_cold_ms": verify_cold, "verify_warm_median_ms": verify_ms,
         "warm_runs": WARM_RUNS, "launches_per_op": per_op}}), flush=True)
-    prof = profile_ops({"commit": lambda: ts.create_commit(p),
+    prof = profile_ops({"from_blob": lambda: kzg.poly.from_blob(
+                            kzg.blob.from_string(data)),
+                        "commit": lambda: ts.create_commit(p),
                         "proof": lambda: ts.create_proof(p, 0, 1),
                         "verify": lambda: ts.verify_proof(c, pr, good)})
-    print(json.dumps({"profile": {"card": card, **prof}}), flush=True)
-    line("main", t_all, f"card {card}: commit cold {commit_cold:.1f} / warm "
+    print(json.dumps({f"profile{sfx}": {"card": card, **prof}}), flush=True)
+    line(label, t_all, f"card {card}: commit cold {commit_cold:.1f} / warm "
          f"{commit_ms:.1f} ms, proof cold {proof_cold:.1f} / warm "
          f"{proof_ms:.1f} ms, verify cold {verify_cold:.1f} / warm "
          f"{verify_ms:.1f} ms (median of {WARM_RUNS})")
@@ -700,19 +808,20 @@ def tiled(batch, lanes):
             .contiguous() for k, v in batch.items()}
 
 
-def point_work(words, coords, muls, lanes):
+def point_work(L, comps, coords, muls, lanes):
     """(bytes, operations) of a point kernel over `lanes` lanes: `coords`
-    coordinates of `words` int64 limbs moved and `muls` base Montgomery
-    products done per lane."""
-    return coords * words * 8 * lanes, muls * 2 * MACS_PER_MUL * lanes
+    coordinates of `comps` base elements of L int64 limbs moved and `muls`
+    base Montgomery products done per lane."""
+    return (coords * comps * L * 8 * lanes,
+            muls * 2 * macs_per_mul(L) * lanes)
 
 
-# per group: int64 words of a coordinate, base Montgomery products of an
-# add and of a doubling, and of the re-reduction after a chain. G1: an add
-# does 12 products and re-reduces 3 outputs, a doubling 9. G2: an add does
-# 14 Fp2 products of 3 base products and re-reduces 6 components, a
+# per group: base elements of a coordinate, and the base Montgomery products
+# the plain add and doubling need (Curve._add_plain, _dbl_plain; a scale by
+# a small constant is not a product). G1: an add does 12 products, a
+# doubling 9. G2: an add does 14 Fp2 products of 3 base products, a
 # doubling 9 Fp2 products
-POINT_WORK = {"g1": (17, 15, 9, 3), "g2": (2 * 17, 48, 27, 6)}
+POINT_WORK = {"g1": (1, 12, 9), "g2": (2, 42, 27)}
 
 
 def merge_inputs(base_p, base_q, lanes, gen):
@@ -728,10 +837,10 @@ def merge_inputs(base_p, base_q, lanes, gen):
     return aL, aR, bL, bR, masks
 
 
-def merge_work(words, add_muls, lanes):
+def merge_work(L, comps, add_muls, lanes):
     """(bytes, operations) of K6 over `lanes` lanes: 7 points of 3
     coordinates and 3 mask bytes moved, one add done per lane."""
-    nbytes, ops = point_work(words, 7 * 3, add_muls, lanes)
+    nbytes, ops = point_work(L, comps, 7 * 3, add_muls, lanes)
     return nbytes + 3 * lanes, ops
 
 
@@ -747,7 +856,8 @@ def merge_sweep(paths, G, base_p, base_q, bound, errs, gen):
     from kzg_tpu_torch.ops.msm import MSMEngine
     grp = "g2" if G.is_fp2 else "g1"
     name = f"merge_combine_{grp}"
-    words, add_muls, _, _ = POINT_WORK[grp]
+    comps, add_muls, _ = POINT_WORK[grp]
+    L = G.F.base.L if G.is_fp2 else G.F.L
     ctx = get_context("BN254", base_p["x"].device)
     eng = MSMEngine(G, ctx.fr, ctx.cp.r, strategy="merge")
     keys = sorted({key for _, shp in paths.values()
@@ -773,7 +883,7 @@ def merge_sweep(paths, G, base_p, base_q, bound, errs, gen):
         for path, n in by_path.items():
             path_ms[path] += n * ms
             halves_path_ms[path] += n * hms
-        bms, by = bound(*merge_work(words, add_muls, lanes))
+        bms, by = bound(*merge_work(L, comps, add_muls, lanes))
         rows.append({"lanes": lanes, "launches_by_path": by_path, "ms": ms,
                      "halves_ms": hms, "bound_ms": bms, "bound_by": by,
                      "max_abs_err": err})
@@ -788,19 +898,20 @@ def gaps(rows, paths):
                       for r in rows) for path in paths}
 
 
-def sweep(paths, bases, bound, errs, gen):
-    """K2-K6 at every distinct shape of the main and msm paths: each held
-    against its plain version (exact canonical affine points), then its
-    device time per launch (kernel_ms) and bound; per path, path_ms = sum
-    over shapes of the path's launches x ms, and gap_ms the same of ms -
-    bound_ms. bases: {group: (curve, P, Q)}.
-    An add moves 9 coordinates, a chain 6 (K6: merge_sweep)."""
+def sweep(paths, bases, bound, errs, gen, L=17):
+    """K2-K6 (at L limbs; K6 where it is built for L) at every distinct
+    shape of the paths: each held against its plain version (exact
+    canonical affine points), then its device time per launch (kernel_ms)
+    and bound; per path, path_ms = sum over shapes of the path's launches x
+    ms, and gap_ms the same of ms - bound_ms. bases: {group: (curve, P,
+    Q)}. An add moves 9 coordinates, a chain 6 (K6: merge_sweep)."""
     from kzg_tpu_torch.ops import cuda
     res = {}
-    for name in ("g1_add", "g1_dbl", "g2_add", "g2_dbl"):
-        grp = name[:2]
+    for kname in ("g1_add", "g1_dbl", "g2_add", "g2_dbl"):
+        grp = kname[:2]
+        name = cuda.kernel_key(kname, L)
         G, base_p, base_q = bases[grp]
-        words, add_muls, dbl_muls, fresh_muls = POINT_WORK[grp]
+        comps, add_muls, dbl_muls = POINT_WORK[grp]
         kadd, kdbl = getattr(cuda, f"{grp}_add"), getattr(cuda, f"{grp}_dbl")
         keys = sorted({key for _, shp in paths.values()
                        for key in shp.get(name, {})},
@@ -833,48 +944,45 @@ def sweep(paths, bases, bound, errs, gen):
                        for path, (_, shp) in paths.items()}
             for path, n in by_path.items():
                 path_ms[path] += n * ms
-            b, by = bound(*point_work(words, 9 if times is None else 6,
+            b, by = bound(*point_work(L, comps, 9 if times is None else 6,
                                       add_muls if times is None
-                                      else dbl_muls * times + fresh_muls,
+                                      else dbl_muls * times,
                                       lanes))
             rows.append({"lanes": lanes, "times": times,
                          "launches_by_path": by_path, "ms": ms,
                          "bound_ms": b, "bound_by": by, "max_abs_err": err})
         res[name] = {"shapes": rows, "path_ms": path_ms,
                      "gap_ms": gaps(rows, paths)}
-    for grp in ("g1", "g2"):
-        res[f"merge_combine_{grp}"] = merge_sweep(paths, *bases[grp], bound,
-                                                  errs, gen)
+    if "msm_merge" in cuda.LIMB_SOURCES[L]:
+        for grp in ("g1", "g2"):
+            res[f"merge_combine_{grp}"] = merge_sweep(paths, *bases[grp],
+                                                      bound, errs, gen)
     return res
 
 
-def phase_kernel_line(dev, paths, errs):
-    """paths: {path: (launches, shapes)} of the main and msm runs."""
+def bound(nbytes, ops):
+    """(bound_ms, what bounds it) of work moving `nbytes` and doing `ops`
+    operations at the card's published peaks."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def phase_kernel_line(dev, paths, bls_paths, errs):
+    """paths: {path: (launches, shapes)} of the main and msm runs;
+    bls_paths: the same of the main_bls run, which the 25-limb kernels and
+    K1 on BLS12-381's Fr are counted and swept on."""
     from kzg_tpu_torch.context import get_context
     from kzg_tpu_torch.ops import cuda
     from kzg_tpu_torch.ops.msm import MSMEngine
     t0 = time.time()
-    ctx = get_context("BN254", dev)
-    F, G, G2 = ctx.fp, ctx.g1, ctx.g2
-    L = F.L
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    rng = random.Random(SEED + 1)
     out = []
-    shapes = {}
-    for _, shp in paths.values():
-        for name, d in shp.items():
-            for key, n in d.items():
-                shapes.setdefault(name, {})
-                shapes[name][key] = shapes[name].get(key, 0) + n
 
-    def bound(nbytes, ops):
-        tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
-        return max(tb, to), ("bytes" if tb >= to else "operations")
-
-    def entry(name, kernel_fn, plain_fn, canon, nbytes, ops, shape):
-        """Hold the kernel against its plain version at this shape (exact
-        canonical equality), then time both."""
-        k = cuda.KERNELS[name]
+    def entry(name, key, on, kernel_fn, plain_fn, canon, nbytes, ops,
+              shape):
+        """Hold the kernel (launch counter `key`, counted on the paths
+        `on`) against its plain version at this shape (exact canonical
+        equality), then time both."""
+        k = cuda.KERNELS[key]
         a, b = canon(kernel_fn()), canon(plain_fn())
         err = (a - b).abs().max().item()
         errs[name] = max(errs[name], err)
@@ -882,9 +990,9 @@ def phase_kernel_line(dev, paths, errs):
         ms = kernel_ms(kernel_fn)
         plain = event_ms(plain_fn, iters=3)
         b, by = bound(nbytes, ops)
-        by_path = {path: lc[name] for path, (lc, _) in paths.items()}
+        by_path = {path: lc[key] for path, (lc, _) in on.items()}
         out.append({"name": name, "route": "cuda", "source": k.source,
-                    "replaces": k.replaces,
+                    "replaces": k.replaces, "limbs": k.limbs,
                     "launches": sum(by_path.values()),
                     "launches_by_path": by_path,
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
@@ -896,56 +1004,99 @@ def phase_kernel_line(dev, paths, errs):
             return torch.cat([G.affine_packed(P) for P in pts], dim=-1)
         return canon
 
-    lanes = heaviest(shapes["mont_mul"])
-    a, b = lazy_limbs(F, lanes, gen), lazy_limbs(F, lanes, gen)
-    entry("mont_mul", lambda: cuda.mont_mul(F, a, b),
-          lambda: F._mul_plain(a, b), F.canon, 3 * L * 8 * lanes,
-          2 * MACS_PER_MUL * lanes, {"lanes": lanes})
+    def curve_entries(curve, on, seed):
+        """The entries of `curve`'s kernels at the heaviest shapes of the
+        paths `on`; returns its sweep."""
+        ctx = get_context(curve, dev)
+        G, G2 = ctx.g1, ctx.g2
+        L = ctx.fp.L
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        rng = random.Random(seed)
+        shapes = {}
+        for _, shp in on.values():
+            for name, d in shp.items():
+                for key, n in d.items():
+                    shapes.setdefault(name, {})
+                    shapes[name][key] = shapes[name].get(key, 0) + n
 
-    bases = {}
-    for grp, Gc, inputs in (("g1", G, g1_inputs), ("g2", G2, g2_inputs)):
-        words, add_muls, dbl_muls, fresh_muls = POINT_WORK[grp]
-        add, dbl = f"{grp}_add", f"{grp}_dbl"
-        kadd, kdbl = getattr(cuda, add), getattr(cuda, dbl)
-        base_p, base_q, _, _, _ = inputs(ctx, K23_LANES, rng)
-        bases[grp] = (Gc, base_p, base_q)
-        lanes = heaviest(shapes[add])
-        P, Q = tiled(base_p, lanes), tiled(base_q, lanes)
-        entry(add, lambda: kadd(Gc, P, Q), lambda: Gc._add_plain(P, Q),
-              Gc.affine_packed, *point_work(words, 9, add_muls, lanes),
-              {"lanes": lanes})
+        for F in ((ctx.fp,) if curve == "BN254" else (ctx.fr, ctx.fp)):
+            key = cuda.kernel_key("mont_mul", F.L)
+            lanes = heaviest(shapes[key])
+            a, b = lazy_limbs(F, lanes, gen), lazy_limbs(F, lanes, gen)
+            entry(k1_entry(curve, F), key, on,
+                  lambda F=F, a=a, b=b: cuda.mont_mul(F, a, b),
+                  lambda F=F, a=a, b=b: F._mul_plain(a, b), F.canon,
+                  3 * F.L * 8 * lanes, 2 * macs_per_mul(F.L) * lanes,
+                  {"lanes": lanes})
 
-        lanes, times = heaviest(shapes[dbl])
-        P = tiled(base_p, lanes)
+        bases = {}
+        for grp, Gc, inputs in (("g1", G, g1_inputs), ("g2", G2, g2_inputs)):
+            comps, add_muls, dbl_muls = POINT_WORK[grp]
+            add = cuda.kernel_key(f"{grp}_add", L)
+            dbl = cuda.kernel_key(f"{grp}_dbl", L)
+            kadd = getattr(cuda, f"{grp}_add")
+            kdbl = getattr(cuda, f"{grp}_dbl")
+            base_p, base_q, _, _, _ = inputs(ctx, K23_LANES, rng)
+            bases[grp] = (Gc, base_p, base_q)
+            lanes = heaviest(shapes[add])
+            P, Q = tiled(base_p, lanes), tiled(base_q, lanes)
+            entry(add, add, on, lambda: kadd(Gc, P, Q),
+                  lambda: Gc._add_plain(P, Q), Gc.affine_packed,
+                  *point_work(L, comps, 9, add_muls, lanes),
+                  {"lanes": lanes})
 
-        def chain():
-            R = P
-            for _ in range(times):
-                R = Gc._dbl_plain(R)
-            return R
+            lanes, times = heaviest(shapes[dbl])
+            P = tiled(base_p, lanes)
 
-        entry(dbl, lambda: kdbl(Gc, P, times), chain, Gc.affine_packed,
-              *point_work(words, 6, dbl_muls * times + fresh_muls, lanes),
-              {"lanes": lanes, "times": times})
+            def chain():
+                R = P
+                for _ in range(times):
+                    R = Gc._dbl_plain(R)
+                return R
 
-        name = f"merge_combine_{grp}"
-        lanes = heaviest(shapes[name])
-        aL, aR, bL, bR, masks = merge_inputs(base_p, base_q, lanes, gen)
-        eng = MSMEngine(Gc, ctx.fr, ctx.cp.r, strategy="merge")
-        entry(name,
-              lambda: cuda.merge_combine(Gc, aL, aR, bL, bR, *masks),
-              lambda: eng._combine_plain(aL, aR, bL, bR, *masks),
-              packed_all(Gc), *merge_work(words, add_muls, lanes),
-              {"lanes": lanes})
-    print(json.dumps({"sweep": sweep(paths, bases, bound, errs, gen)}),
-          flush=True)
+            entry(dbl, dbl, on, lambda: kdbl(Gc, P, times), chain,
+                  Gc.affine_packed,
+                  *point_work(L, comps, 6, dbl_muls * times, lanes),
+                  {"lanes": lanes, "times": times})
+
+            if "msm_merge" not in cuda.LIMB_SOURCES[L]:
+                continue
+            name = f"merge_combine_{grp}"
+            lanes = heaviest(shapes[name])
+            aL, aR, bL, bR, masks = merge_inputs(base_p, base_q, lanes, gen)
+            eng = MSMEngine(Gc, ctx.fr, ctx.cp.r, strategy="merge")
+            entry(name, name, on,
+                  lambda: cuda.merge_combine(Gc, aL, aR, bL, bR, *masks),
+                  lambda: eng._combine_plain(aL, aR, bL, bR, *masks),
+                  packed_all(Gc), *merge_work(L, comps, add_muls, lanes),
+                  {"lanes": lanes})
+        return sweep(on, bases, bound, errs, gen, L)
+
+    swept = curve_entries("BN254", paths, SEED + 1)
+    swept.update(curve_entries(BLS, bls_paths, SEED + 8))
+    print(json.dumps({"sweep": swept}), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     line("kernels", t0, "each kernel == its plain version at the heaviest "
          "shape its path gave it; ms = device time per launch (CUDA events, "
          "launches queued behind a spin kernel), event_ms and plain_ms = "
          "CUDA events around back-to-back calls (host gaps included; plain "
          "= the PyTorch version on the same tensors); launches = the main "
-         "and msm paths' runs")
+         "and msm paths' runs (BLS12-381 entries: the main_bls run's)")
+
+
+def main_only(dev):
+    """`--main-only`: the BN254 main phase alone (its main_path and profile
+    lines), after building the 17-limb kernels. It uses only the package's
+    init, protocol and launch counters, so this script also runs it beside
+    a tree of the package that predates BLS12-381, to compare the two."""
+    from kzg_tpu_torch.ops import cuda
+    t0 = time.time()
+    cuda.build()
+    card = smi()
+    line("build", t0, f"card: {card}")
+    phase_main(dev, card)
+    print(card, flush=True)
+    return 0
 
 
 def main():
@@ -960,15 +1111,21 @@ def main():
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if sys.argv[1:] == ["--main-only"]:
+        return main_only(dev)
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     t_start = time.time()
     card = phase_build()
-    errs = dict.fromkeys(MAIN_KERNELS + MSM_KERNELS, 0)
+    errs = dict.fromkeys(MAIN_KERNELS + MSM_KERNELS + tuple(BLS_ENTRIES), 0)
     phase_kernels(dev, errs)
+    phase_kernels(dev, errs, BLS)
     phase_golden(dev)
+    phase_golden(dev, BLS)
     launches, shapes, state = phase_main(dev, card)
     paths = {"main": (launches, shapes),
              "msm": phase_msm(card, state)}
-    phase_kernel_line(dev, paths, errs)
+    launches, shapes, _ = phase_main(dev, card, BLS)
+    phase_kernel_line(dev, paths, {"main_bls": (launches, shapes)}, errs)
     check("jax" not in sys.modules and not any(
         m == "kzg_tpu" or m.startswith("kzg_tpu.") for m in sys.modules),
         "no JAX and nothing of the JAX package imported")

@@ -1,10 +1,11 @@
 """kzg_tpu_torch — the PyTorch/CUDA port of kzg_tpu.
 
-KZG polynomial commitments over BN254 on an NVIDIA H100: the protocol
-surface of ``kzg_tpu`` (init, blob, poly, commit, proof, trusted_setup)
-with hand-written CUDA kernels for the Montgomery multiply and the G1
-complete add and doubling (kzg_tpu_torch/csrc/). It imports torch and
-numpy, never jax and nothing of ``kzg_tpu``.
+KZG polynomial commitments over BN254 and BLS12-381 on an NVIDIA H100:
+the protocol surface of ``kzg_tpu`` (init, blob, poly, commit, proof,
+trusted_setup) with hand-written CUDA kernels for the Montgomery multiply
+and the G1 and G2 complete add and doubling (kzg_tpu_torch/csrc/, built
+per limb count). It imports torch and numpy, never jax and nothing of
+``kzg_tpu``.
 
 Quick start::
 

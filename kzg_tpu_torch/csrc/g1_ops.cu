@@ -1,5 +1,6 @@
 // K2: G1 complete point add (with an optional per-lane reset mask) and
-// K3: a chain of `times` G1 complete doublings, BN254 (a = 0).
+// K3: a chain of `times` G1 complete doublings, BN254 and BLS12-381 (a = 0;
+// built at L = 17 and 25 limbs, mont.cuh).
 //
 // Replace the JAX package's composite Pallas kernels, each a whole group
 // operation traced into one VMEM-resident fuse_pointwise kernel
@@ -13,21 +14,22 @@
 //         MSMEngine.precompute_shifted with times = 8 and by the merge
 //         msm's Horner tail.
 //
-// Bound on the card: an add reads 6 and writes 3 coordinates (9 x 17 int64
-// limbs, 1224 bytes per lane) and does 12 Montgomery products plus 3 to
-// re-reduce its outputs; a doubling does 9 (4, then 3, then 2 independent
-// ones). The paths launch them narrow (32 lanes in setup's comb and the
-// bucket scans' tails, a few hundred to a few thousand per chunked bucket
-// step, 1 lane x 8 in the merge msm's Horner tail, 5000 x 8 for the
-// shifted bases), where one lane's serial chain of products sets the time
-// when one thread owns a lane: 15 products per add, 75 per chain of 8.
+// Bound on the card: an add reads 6 and writes 3 coordinates (9 x L int64
+// limbs, 1224 bytes per lane at 17 limbs, 1800 at 25) and does 12
+// Montgomery products plus 3 to re-reduce its outputs; a doubling does 9
+// (4, then 3, then 2 independent ones). The paths launch them narrow (32
+// lanes in setup's comb and the bucket scans' tails, a few hundred to a
+// few thousand per chunked bucket step, 1 lane x 8 in the merge msm's
+// Horner tail, 5000 x 8 for the shifted bases), where one lane's serial
+// chain of products sets the time when one thread owns a lane: 15
+// products per add, 75 per chain of 8.
 //
 // Design (team.cuh, shared with K4/K5): each lane is owned by a team of T
 // threads of one warp (T and the warps per block come with the schedule
 // table, kzg_tpu_torch/ops/team.py; the add and the doubling have their
 // own). The point, the constants and every intermediate live in the
 // block's shared memory; the formula runs as levels of independent
-// instructions spread over the team, each product an inlined 17 x 17
+// instructions spread over the team, each product an inlined L x L
 // Montgomery product on operands in registers. A lane's chain falls to the
 // product rounds of its schedule (team.rounds: 3 per add at T = 6, 3 per
 // doubling at T = 3, with every thread busy in each). The subtractions

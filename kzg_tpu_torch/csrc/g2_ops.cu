@@ -1,5 +1,6 @@
 // K4: G2 complete point add (with an optional per-lane reset mask) and
-// K5: a chain of `times` G2 complete doublings, BN254's twist (a = 0).
+// K5: a chain of `times` G2 complete doublings, BN254's and BLS12-381's
+// twists (a = 0, Fp2 with u^2 = -1; built at L = 17 and 25 limbs).
 //
 // Replace the G2 instances of the JAX package's composite Pallas kernels
 // (kzg_tpu/ops/fuse.py pl.pallas_call through fuse_composite /
@@ -14,8 +15,9 @@
 //         on the first verify, and by the merge msm's Horner tail.
 //
 // Bound on the card: an add reads 6 and writes 3 Fp2 coordinates (9 x 2 x
-// 17 int64 limbs, 2448 bytes per lane) and does 48 base Montgomery
-// products (14 Fp2 products of 3, 6 re-reductions); a doubling does 27.
+// L int64 limbs, 2448 bytes per lane at 17 limbs, 3600 at 25) and does 48
+// base Montgomery products (14 Fp2 products of 3, 6 re-reductions); a
+// doubling does 27.
 // The paths launch them mostly narrow (1 lane in the Horner tail, 32 in
 // setup's comb, tens to hundreds in verify's MSM, 5000 at most for the
 // chains), where one lane's serial chain of products sets the time: 48 per
@@ -26,7 +28,7 @@
 // table, kzg_tpu_torch/ops/team.py). The point, the constants and every
 // intermediate live in the block's shared memory; the formula runs as
 // levels of independent instructions spread over the team, each product
-// an inlined 17 x 17 Montgomery product on operands in registers. A lane's
+// an inlined L x L Montgomery product on operands in registers. A lane's
 // chain falls to the product rounds of its schedule (team.rounds: 7 per
 // add and 4 per doubling at T = 8), and no operand goes through a local
 // stack frame. Outputs are re-reduced: exact 16-bit limbs, each component

@@ -5,18 +5,28 @@
 // with R = 2^(16 L). One thread owns one lane; thread i reads limb k at
 // k * lanes + i, so neighbouring threads read neighbouring addresses.
 //
-// Value-bound contract (kzg_tpu_torch/fields/mont.py):
-//   mont_mul inputs: value < 64 p, limbs < 2^22;
-//   mont_mul output: exact 16-bit limbs, value < p + p/16 (< 1.1 p).
-// With R >= 2^16 p, (a b + m p) / R < a b / R + p <= p (1 + 2^12 / 2^16).
+// The limb count L is fixed at compile time by -DKZG_L (17 when unset):
+// 17 for BN254's Fp and Fr and BLS12-381's Fr, 25 for BLS12-381's Fp
+// (kzg_tpu_torch/ops/cuda.py builds each source once per limb count).
+//
+// Value bounds (kzg_tpu_torch/fields/mont.py states them as measured):
+//   mont_mul inputs: limbs < 2^22, so each 64-bit column stays below
+//   2 L 2^44; the output is exact 16-bit limbs of (a b + m p) / R <
+//   a b / R + p: below 1.1 p for inputs below 64 p (R >= 2^16 p), below
+//   2 p while a b < R p (every product on BN254), and below 2.14 p on
+//   BLS12-381, whose G1 add gives one product a b = 1.14 R p.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef KZG_L
+#define KZG_L 17
+#endif
+
 namespace kzg {
 
-constexpr int L = 17;              // limbs of BN254 Fp and Fr
+constexpr int L = KZG_L;           // limbs per field element
 constexpr uint32_t MASK16 = 0xFFFFu;
 
 // Modulus constants, passed by value as a kernel parameter (constant bank).
@@ -42,8 +52,8 @@ __device__ __forceinline__ void fe_store(int64_t* base, const Fe& x,
   for (int k = 0; k < L; ++k) base[k * lanes + i] = (int64_t)x.v[k];
 }
 
-// Montgomery product a b R^-1: 17x17 product columns in 64-bit
-// accumulators (each < 17 * 2^44), then 17 rounds of base-2^16 reduction
+// Montgomery product a b R^-1: L x L product columns in 64-bit
+// accumulators (each < L * 2^44), then L rounds of base-2^16 reduction
 // (m = t_i n0 mod 2^16; t += m p 2^(16 i); carry t_i up), then the exact
 // carry chain of the high half. No final conditional subtraction.
 __device__ __forceinline__ void mont_mul(Fe& out, const Fe& a, const Fe& b,

@@ -1,19 +1,22 @@
-// K1: batched Montgomery multiply over BN254 Fp or Fr.
+// K1: batched Montgomery multiply over a prime field of L limbs (L from
+// -DKZG_L: 17 for BN254's Fp and Fr and BLS12-381's Fr, whose constants
+// come from the host; 25 for BLS12-381's Fp).
 //
 // Replaces T1, the one Pallas kernel on the JAX package's default path:
 // kzg_tpu/fields/mont.py Field.mul -> fuse_pointwise(Field._mul_impl)
 // (kzg_tpu/ops/fuse.py pl.pallas_call), a float32-matmul Montgomery product
 // tiled over 256-lane VMEM blocks. Here the product is integer-only: one
-// thread per lane, 17x17 32x32->64-bit multiply-accumulates into 64-bit
-// columns plus 17 base-2^16 reduction rounds in registers (mont.cuh).
+// thread per lane, L x L 32x32->64-bit multiply-accumulates into 64-bit
+// columns plus L base-2^16 reduction rounds in registers (mont.cuh).
 //
-// Bound on the card: per lane it moves 3 x 17 int64 limbs (408 bytes) and
-// does 2 x 289 + 17 16-bit multiply-accumulates, so at the int64 storage of
-// the port's tensors it is bound by bytes, not by the integer multiply
-// rate. The design keeps every intermediate in registers (nothing but the
-// operands and the result touches memory) and reads limb-major so that a
-// warp's loads of one limb are one contiguous 256-byte run. Storing limbs
-// as 32-bit words would halve the bytes; that is later work.
+// Bound on the card: per lane it moves 3 x L int64 limbs (408 bytes at 17
+// limbs, 600 at 25) and does 2 L^2 + L 16-bit multiply-accumulates, so at
+// the int64 storage of the port's tensors it is bound by bytes, not by the
+// integer multiply rate. The design keeps every intermediate in registers
+// (nothing but the operands and the result touches memory) and reads
+// limb-major so that a warp's loads of one limb are one contiguous 256-byte
+// run. Storing limbs as 32-bit words would halve the bytes; that is later
+// work.
 #include "mont.cuh"
 
 namespace kzg {

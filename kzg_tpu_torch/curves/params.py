@@ -102,6 +102,17 @@ class CurveParams:
         """Reference MAX_CHUNK_BYTES macro."""
         return self.order_bytes - 1
 
+    def ntt_root(self, log_n: int) -> int:
+        """Primitive 2^log_n-th root of unity in Fr (raw int, not Montgomery)."""
+        if log_n > self.fr_two_adicity:
+            raise ValueError(
+                f"{self.name}: Fr has 2-adicity {self.fr_two_adicity}, "
+                f"no 2^{log_n} roots of unity")
+        w = self.fr_sylow_gen
+        for _ in range(self.fr_two_adicity - log_n):
+            w = w * w % self.r
+        return w
+
 
 @lru_cache(maxsize=None)
 def get_curve(name: str) -> CurveParams:
@@ -116,4 +127,4 @@ def get_curve(name: str) -> CurveParams:
 
 CURVE_NAMES = ("BN158", "BN254", "BLS12381")
 # Curves the port runs end to end; the others' constants are data only.
-PORTED_CURVES = ("BN254",)
+PORTED_CURVES = ("BN254", "BLS12381")

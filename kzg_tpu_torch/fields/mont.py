@@ -12,9 +12,21 @@ Representation (the JAX package's, so the same numpy limbs feed both):
     value stays non-negative (the lifted ``sub`` keeps it so), so arithmetic
     ``>>`` is a logical shift.
 
-Value-bound discipline (the JAX package's contract):
-  * mul inputs: value < 64 p, limbs < 2^22; outputs: exact 16-bit limbs,
-    value < 1.1 p;
+Value-bound discipline (the JAX package's contract, and what holds):
+  * mul: the JAX package states inputs value < 64 p, limbs < 2^22, and
+    outputs with exact 16-bit limbs, value < 1.1 p. The product itself
+    needs only limbs < 2^22 (and a value below R); its output is then
+    (a b + m p) / R < a b / R + p: < 1.1 p for inputs below 64 p (R >=
+    2^16 p), < 2 p while a b < R p. The G1 complete add's lazy
+    subtractions add lift_limbs(16)'s m p (m = 180 on BN254, 247 on
+    BLS12-381), so it gives Field.mul inputs past 64 p: on BN254 up to
+    ~1082 p with a b < 0.44 R p; on BLS12-381 (L = 25, R > 645,173 p)
+    G = 3b (X1Z2 + X2Z1) up to ~2976 p (limbs up to ~843,000) times ~248 p,
+    a b up to 1.14 R p, so that product's output reaches ~2.14 p (measured
+    by tests/test_torch_g2_schedule.py, which holds the lane-team schedules
+    to a b < 1.15 R p there, output < 2.15 p). Its callers take such an
+    output as a lazy value; kernels and plain versions agree limb for
+    limb on it, and the add's outputs re-reduce below 1.1 p;
   * add is lazy (1 op), bounds add;  sub(a, b) requires value(b) <= k p and
     emits limbs <= 2^16 + 1 with value <= value(a) + m p (see _kp_lift).
 
@@ -260,8 +272,10 @@ class Field:
 
     def mul(self, a, b):
         """Montgomery product a*b*R^-1. Input contract: value < 64 p, limbs
-        < 2^22. Output: exact 16-bit limbs, value < 1.1 p. Kernel K1 on the
-        card, _mul_plain on the CPU."""
+        < 2^22. Output: exact 16-bit limbs, value < 1.1 p (below a b / R +
+        p in general; see the module docstring for the inputs past 64 p that
+        the G1 add gives it). Kernel K1 on the card (at the field's limb
+        count), _mul_plain on the CPU."""
         a, b = self._bc(a, b)
         if a.device.type == "cuda":
             return cuda.mont_mul(self, a, b)

@@ -21,11 +21,18 @@ from team.MERGE_WIDE lanes up). A group's constant array is K1's modulus
 words (p, R mod p, n0: 2 L + 1 uint32 of the base field), then that team
 block (_g1_consts, _g2_consts).
 
+The limb count L is a compile-time constant of the sources (``-DKZG_L``):
+each source compiles once per limb count it is asked for, 17 for BN254's
+Fp and Fr and BLS12-381's Fr, 25 for BLS12-381's Fp. A wrapper picks the
+library by its field's L; the kernels of a 17-limb field count their
+launches under their names (``mont_mul``), the others under name@L
+(``mont_mul@25``). K6 is built for 17 limbs only.
+
 Each source compiles at first use with nvcc into a shared library with a
 plain C interface under ``build/kzg_tpu_torch/`` at the root of the
-checkout (named by a hash of the sources and flags, so a stale library is
-never loaded), and is loaded with ctypes. ``build()`` compiles all sources
-at once, one nvcc process each.
+checkout (named by a hash of the sources, flags and limb count, so a stale
+library is never loaded), and is loaded with ctypes. ``build()`` compiles
+all sources at once, one nvcc process each.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on torch's current stream, raises if
@@ -64,16 +71,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"mont_mul": "mont_mul.cu", "g1_ops": "g1_ops.cu",
            "g2_ops": "g2_ops.cu", "msm_merge": "msm_merge.cu"}
 HEADERS = ["mont.cuh", "team.cuh"]
+BASE_L = 17             # the limb count whose kernels keep their bare names
+# the sources built at each limb count: K1-K6 at 17 limbs; at 25 (BLS12-381
+# Fp) K1-K5, K6 being queued (ROADMAP)
+LIMB_SOURCES = {17: tuple(SOURCES), 25: ("mont_mul", "g1_ops", "g2_ops")}
 
 
 class Kernel:
-    """Launch counter and provenance of one hand-written kernel."""
+    """Launch counter and provenance of one hand-written kernel at one limb
+    count."""
 
-    def __init__(self, name, lib, source, replaces):
+    def __init__(self, name, lib, source, replaces, limbs=BASE_L):
         self.name = name
         self.lib = lib                 # key of SOURCES
         self.source = source           # path in the repo
         self.replaces = replaces       # the TPU kernel's call site(s)
+        self.limbs = limbs             # the L it is built for (-DKZG_L)
         self.launches = 0
         self.shapes = collections.Counter()   # lanes (and times) per launch
 
@@ -110,6 +123,17 @@ KERNELS = {
 }
 
 
+def kernel_key(name, limbs):
+    """The KERNELS key of kernel `name` built for `limbs` limbs."""
+    return name if limbs == BASE_L else f"{name}@{limbs}"
+
+
+KERNELS.update({kernel_key(k.name, L): Kernel(k.name, k.lib, k.source,
+                                                k.replaces, L)
+                for L, srcs in LIMB_SOURCES.items() if L != BASE_L
+                for k in KERNELS.values() if k.lib in srcs})
+
+
 def reset_counts():
     for k in KERNELS.values():
         k.launches = 0
@@ -141,56 +165,64 @@ def _nvcc():
                        "with the CUDA toolkit (set CUDA_HOME)")
 
 
-def _so_path(name):
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(limbs):
+    return NVCC_FLAGS + [f"-DKZG_L={limbs}"]
+
+
+def _so_path(name, limbs=BASE_L):
+    h = hashlib.sha256(" ".join(_flags(limbs)).encode())
     for f in [SOURCES[name]] + HEADERS:
         h.update((CSRC / f).read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}_L{limbs}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=None):
-    """Compile the given sources (default: all) that are not built yet, one
-    nvcc process each, all started together. Returns {name: seconds}."""
-    names = list(SOURCES) if names is None else list(names)
+def build(names=None, limbs=(BASE_L,)):
+    """Compile the given sources (default: all that are built at that limb
+    count, LIMB_SOURCES) at each of the limb counts `limbs` that are not
+    built yet, one nvcc process each, all started together. Returns
+    {kernel_key(name, L): seconds}."""
+    jobs = [(name, L) for L in limbs
+            for name in (LIMB_SOURCES[L] if names is None else names)]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
     t0 = time.time()
-    for name in names:
-        so = _so_path(name)
+    for name, L in jobs:
+        so = _so_path(name, L)
         if so.exists():
             continue
         nvcc = nvcc or _nvcc()
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        log = open(BUILD_DIR / f"{name}.log", "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        key = kernel_key(name, L)
+        log = open(BUILD_DIR / f"{key}.log", "w")
+        cmd = [nvcc, *_flags(L), "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=log,
-                                        stderr=subprocess.STDOUT), tmp, so,
-                       log)
+        procs[key] = (subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT), tmp, so,
+                      log)
     secs = {}
     failed = []
     while len(secs) < len(procs):          # each source's own finish time
-        for name, (proc, tmp, so, log) in procs.items():
-            if name in secs or proc.poll() is None:
+        for key, (proc, tmp, so, log) in procs.items():
+            if key in secs or proc.poll() is None:
                 continue
             log.close()
-            secs[name] = time.time() - t0
+            secs[key] = time.time() - t0
             if proc.returncode != 0:
-                failed.append(name)
+                failed.append(key)
             else:
                 os.replace(tmp, so)
         time.sleep(0.1)
     if failed:
-        logs = "\n".join((BUILD_DIR / f"{n}.log").read_text()[-4000:]
-                         for n in failed)
+        logs = "\n".join((BUILD_DIR / f"{k}.log").read_text()[-4000:]
+                         for k in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
     return secs
 
 
-def build_log(name):
+def build_log(name, limbs=BASE_L):
     """nvcc's output (ptxas register and spill report) of the last build."""
-    p = BUILD_DIR / f"{name}.log"
+    p = BUILD_DIR / f"{kernel_key(name, limbs)}.log"
     return p.read_text() if p.exists() else ""
 
 
@@ -206,19 +238,20 @@ _ARGTYPES = {
 }
 
 
-def _lib(name):
+def _lib(name, limbs=BASE_L):
     with _lock:
-        if name not in _libs:
-            so = _so_path(name)
+        key = (name, limbs)
+        if key not in _libs:
+            so = _so_path(name, limbs)
             if not so.exists():
-                build([name])
+                build([name], (limbs,))
             lib = ctypes.CDLL(str(so))
             for fn, args in _ARGTYPES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = args
                     getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
-        return _libs[name]
+            _libs[key] = lib
+        return _libs[key]
 
 
 def _check(rc, what):
@@ -266,7 +299,8 @@ def _g1_consts(G):
     """K1's constants, then the lane-team block of K2/K3/K6 (team.block).
     The schedules follow Curve._add_plain / _dbl_plain on the branches
     those take when 3b <= 14 (a lazy small multiple) and 9b > 15 (a full
-    product), as for BN254; other curves raise."""
+    product): BN254 (3b = 6) and BLS12-381 (3b = 12); other curves
+    raise."""
     F = G.F
     b3 = G._b3_int
     if not (b3 <= 14 and 3 * b3 > 15):
@@ -278,8 +312,8 @@ def _g1_consts(G):
 
 def _g2_consts(G):
     """K1's constants of the base field, then the lane-team block of
-    K4/K5/K6 (team.block). The schedules take Fp2 with qnr = -1, as
-    BN254's; other curves raise."""
+    K4/K5/K6 (team.block). The schedules take Fp2 with qnr = -1 (BN254,
+    BLS12-381); other curves raise."""
     F2 = G.F
     B = F2.base
     if not F2.qnr_is_m1:
@@ -316,11 +350,11 @@ def mont_mul(F, a, b):
     lanes = a.numel() // F.L
     if lanes == 0:
         return out
-    lib = _lib("mont_mul")
+    lib = _lib("mont_mul", F.L)
     _check(lib.kzg_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                             lanes, ctypes.cast(_mod_consts(F), _VP), F.L,
                             _stream()), "mont_mul")
-    KERNELS["mont_mul"].count(lanes)
+    KERNELS[kernel_key("mont_mul", F.L)].count(lanes)
     return out
 
 
@@ -405,10 +439,11 @@ def _point_add(name, G, P, Q, reset):
     if reset is not None:
         reset = _mask(reset, batch, dev, name)
         rptr = reset.data_ptr()
-    kern = KERNELS[name]
-    fn = getattr(_lib(kern.lib), "kzg_" + name)
+    L = _lead(G)[-1]
+    kern = KERNELS[kernel_key(name, L)]
+    fn = getattr(_lib(kern.lib, L), "kzg_" + name)
     _check(fn(*[t.data_ptr() for t in c], rptr, out.data_ptr(), lanes,
-              _consts(G), _lead(G)[-1], _stream()), name)
+              _consts(G), L, _stream()), name)
     kern.count(lanes)
     return _unpack(out, batch)
 
@@ -421,10 +456,11 @@ def _point_dbl(name, G, P, times):
                       device=c[0].device)
     if lanes == 0:
         return _unpack(out, batch)
-    kern = KERNELS[name]
-    fn = getattr(_lib(kern.lib), "kzg_" + name)
+    L = _lead(G)[-1]
+    kern = KERNELS[kernel_key(name, L)]
+    fn = getattr(_lib(kern.lib, L), "kzg_" + name)
     _check(fn(*[t.data_ptr() for t in c], out.data_ptr(), lanes, int(times),
-              _consts(G), _lead(G)[-1], _stream()), name)
+              _consts(G), L, _stream()), name)
     kern.count((lanes, int(times)))
     return _unpack(out, batch)
 
@@ -461,6 +497,11 @@ def merge_combine(G, aL, aR, bL, bR, fuse, asing, bsing):
     one lane stride (a merge level's stride-2 halves) are read in place."""
     name = "merge_combine_g2" if G.is_fp2 else "merge_combine_g1"
     lead = _lead(G)
+    if "msm_merge" not in LIMB_SOURCES.get(lead[-1], ()):
+        raise NotImplementedError(
+            f"{name}: K6 is built for {BASE_L} limbs only, not {lead[-1]} "
+            f"({G.name}); its {lead[-1]}-limb instance is queued in "
+            "ROADMAP.md section B")
     n = len(lead)
     coords = [P[k] for P in (aL, aR, bL, bR) for k in ("x", "y", "z")]
     batch = tuple(torch.broadcast_shapes(*[t.shape[n:] for t in coords]))

@@ -1,5 +1,4 @@
-"""Batched polynomial arithmetic over Fr (counterpart of kzg_tpu/ops/poly.py,
-its BN254 path).
+"""Batched polynomial arithmetic over Fr (counterpart of kzg_tpu/ops/poly.py).
 
 Everything here is exact mod r; the *results* (interpolant I, vanishing Z,
 quotient q, evaluations) are mathematically unique, so they match the JAX
@@ -7,10 +6,13 @@ package and the reference bit for bit.
 
   * coefficients are limb-major Montgomery tensors (L, *batch, n) — batch
     dims let whole subproduct-tree levels run as one field multiply;
-  * convolution is Karatsuba down to a one-shot schoolbook block (one
-    batched field mul of all coefficient pairs + a skew-reshape anti-diagonal
-    sum). BN254 has v2(r-1) = 2, so the NTT path of the JAX package is never
-    taken for it and is not ported yet;
+  * convolution takes the JAX package's rule, a radix-2 NTT when the
+    product's padded length 2^k has k <= v2(r-1), from k = 3 on: every
+    product of more than 4 coefficients on BLS12-381 (v2(r-1) = 32), none
+    on BN254 (v2(r-1) = 2). Else Karatsuba down to a one-shot schoolbook
+    block (one batched field mul of all coefficient pairs + a skew-reshape
+    anti-diagonal sum), which does a product of at most 4 coefficients in
+    one multiply. The butterflies' products are Field.mul (K1);
   * interpolation / multieval use subproduct trees over the consecutive
     integer domains the protocol uses (x = chunk index + offset); Lagrange
     denominators collapse to factorials:
@@ -21,15 +23,19 @@ package and the reference bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as nnf
 
 from ..curves.params import CurveParams
-from ..fields.mont import Field
+from ..fields.mont import Field, ints_to_limbs
 
 SCHOOL_BASE = 64         # Karatsuba base-case size
 HORNER_BLOCK = 128       # blocked-Horner segment size
 MULTIEVAL_DIRECT = 256   # <= this many points: blocked Horner, else tree
+NTT_MIN_K = 3            # smallest NTT convolution, 2^3 coefficients: below
+                         # it the schoolbook block takes one multiply where
+                         # the NTT takes 3 k + 2
 
 
 def _next_pow2(n):
@@ -46,6 +52,7 @@ class PolyEngine:
         self.r = cp.r
         self._facts = [1]      # factorials mod r (host ints, grown on demand)
         self._iota = {}        # encoded 0..n-1 per n
+        self._tw = {}          # NTT permutations and stage twiddles
 
     # ------------------------------------------------------------------
     # host-side helpers
@@ -68,6 +75,76 @@ class PolyEngine:
         if pad <= 0:
             return x
         return nnf.pad(x, (0, pad))
+
+    # ------------------------------------------------------------------
+    # NTT backend
+    # ------------------------------------------------------------------
+    def _bitrev(self, k):
+        """The bit-reversal permutation of 2^k indices, on the device."""
+        key = ("perm", k)
+        if key not in self._tw:
+            i = torch.arange(1 << k)
+            perm = torch.zeros_like(i)
+            for b in range(k):
+                perm |= ((i >> b) & 1) << (k - 1 - b)
+            self._tw[key] = perm.to(self.F.device)
+        return self._tw[key]
+
+    def _stage_tw(self, k, s, inverse):
+        """(L, 2^(s-1)) Montgomery twiddles w_m^j of stage s of a size-2^k
+        NTT (w_m a primitive 2^s-th root, inverted for the inverse NTT)."""
+        key = (k, s, inverse)
+        if key not in self._tw:
+            n, m, r = 1 << k, 1 << s, self.r
+            wm = pow(self.cp.ntt_root(k), n // m, r)
+            if inverse:
+                wm = pow(wm, -1, r)
+            tw = [1]
+            for _ in range(m // 2 - 1):
+                tw.append(tw[-1] * wm % r)
+            mont = [t * self.F.params.mont_r % r for t in tw]
+            self._tw[key] = torch.from_numpy(
+                ints_to_limbs(mont, self.F.L).astype(np.int64)).to(
+                    self.F.device)
+        return self._tw[key]
+
+    def ntt(self, x, inverse=False):
+        """Radix-2 NTT along the last axis (length 2^k), natural order in
+        and out; values re-reduced every 6 stages and at the end (the
+        inverse by its product with n^-1)."""
+        F = self.F
+        n = x.shape[-1]
+        k = n.bit_length() - 1
+        assert (1 << k) == n, "NTT size must be a power of 2"
+        x = x[..., self._bitrev(k)]
+        for s in range(1, k + 1):
+            m = 1 << s
+            tw = self._stage_tw(k, s, inverse)               # (L, m/2)
+            xs = x.reshape(x.shape[:-1] + (n // m, m))
+            lo = xs[..., : m // 2]
+            hi = xs[..., m // 2:]
+            twb = tw.reshape((tw.shape[0],) + (1,) * (lo.ndim - 2)
+                             + (m // 2,))
+            t = F.mul(hi, twb)
+            nlo = F.add(lo, t)
+            nhi = F.sub(lo, t, k=4)
+            x = torch.cat([nlo, nhi], dim=-1).reshape(x.shape)
+            if s % 6 == 0:
+                x = F.freshen(x)
+        if inverse:
+            n_inv = pow(n, -1, self.r)
+            x = F.mul(x, F.const(n_inv, ()).reshape(
+                (F.L,) + (1,) * (x.ndim - 1)))
+        else:
+            x = F.freshen(x)
+        return x
+
+    def _conv_ntt(self, a, b, out_n):
+        F = self.F
+        nfft = _next_pow2(out_n)
+        fa = self.ntt(self._pad_last(a, nfft))
+        fb = self.ntt(self._pad_last(b, nfft))
+        return self.ntt(F.mul(fa, fb), inverse=True)[..., :out_n]
 
     # ------------------------------------------------------------------
     # Karatsuba / schoolbook backend
@@ -153,6 +230,9 @@ class PolyEngine:
             return torch.zeros(a.shape[:-1] + (max(na + nb - 1, 1),),
                                dtype=a.dtype, device=a.device)
         out_n = na + nb - 1
+        k = _next_pow2(out_n).bit_length() - 1
+        if NTT_MIN_K <= k <= self.cp.fr_two_adicity:
+            return self._conv_ntt(a, b, out_n)
         m = _next_pow2(max(na, nb))
         a, b = self._bc(self._pad_last(a, m), self._pad_last(b, m))
         c = self._conv_kara(a, b)

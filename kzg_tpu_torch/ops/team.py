@@ -3,8 +3,9 @@ chain), K4/K5 (G2) and K6 (the merge combine of either group), as data.
 
 The kernels (csrc/team.cuh) give each lane of a point batch to a team of
 threads inside one warp. The point, the constants and every
-intermediate live in the block's shared memory as base-field *slots* (17
-uint32 limbs each); the formula runs in *levels*. In a level every
+intermediate live in the block's shared memory as base-field *slots* (L
+uint32 limbs each: 17 on BN254, 25 on BLS12-381); the formula runs in
+*levels*. In a level every
 instruction is independent of the others, team rank r executes
 instructions r, r + T, r + 2T, ... (T threads per team), and the team
 synchronises after it. An instruction is one of
@@ -20,11 +21,11 @@ mul_small, or over Fp2's): a lazy add is a limbwise sum in either place.
 A subtraction becomes an EXACT with the plain version's own value: m p is
 Fp2.sub(k)'s exact k p for G2, and for G1 the multiple m p that the lazy
 Field.sub(k) adds (Field.lift_limbs(k): m = 180 for k = 16 and 194 for
-k = 32 on BN254). Its limbs may differ from the lazy ones, but a Montgomery
-product depends only on its inputs' values, and nothing is reordered
-across a subtraction, so every product sees the values the plain version
-gives Field.mul, and every output equals the plain version's once both
-are re-reduced.
+k = 32 on BN254, 247 and 266 on BLS12-381). Its limbs may differ from
+the lazy ones, but a Montgomery product depends only on its inputs'
+values, and nothing is reordered across a subtraction, so every product
+sees the values the plain version gives Field.mul, and every output
+equals the plain version's once both are re-reduced.
 
 This module builds each group's four schedules (the add, the add of a
 reset lane, one doubling, the re-reduction after a chain), places each
@@ -117,8 +118,9 @@ def _scale(x, s):
 
 # ----------------------------------------------------------------------
 # G1 (Curve._add_plain / _dbl_plain over Field, a = 0): base elements x,
-# y, z; 3b a small scale (<= 14) and 9b a product by its Montgomery form
-# (9b > 15), BN254's branches (ops/cuda.py _g1_consts checks them)
+# y, z; 3b a small scale and 9b a product by its Montgomery form, the
+# branches the plain version takes when 3b <= 14 and 9b > 15 (BN254: 3b =
+# 6, BLS12-381: 3b = 12; ops/cuda.py _g1_consts checks them)
 # ----------------------------------------------------------------------
 
 def _g1_add(b3, m16, kps):

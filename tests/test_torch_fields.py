@@ -34,10 +34,12 @@ N = 24
 @functools.lru_cache(maxsize=None)
 def _fields(which):
     """The port's and kzg_tpu's field, and kzg_tpu's jitted functions (one
-    jit per function, so that each compiles once per shape)."""
-    cp, jcp = get_curve("BN254"), jax_curve("BN254")
-    fp = cp.fp if which == "fp" else cp.fr
-    jfp = jcp.fp if which == "fp" else jcp.fr
+    jit per function, so that each compiles once per shape). `which`: fp
+    or fr of BN254, bls-fp for BLS12-381's Fp (25 limbs)."""
+    curve = "BLS12381" if which.startswith("bls-") else "BN254"
+    cp, jcp = get_curve(curve), jax_curve(curve)
+    fp = cp.fp if which.endswith("fp") else cp.fr
+    jfp = jcp.fp if which.endswith("fp") else jcp.fr
     jF = JField(jfp)
     jit = {"canon": jax.jit(lambda a: jF.canon(jF.from_mont(a))),
            "mul": jax.jit(jF.mul), "add": jax.jit(jF.add),
@@ -54,7 +56,8 @@ def _lazy_limbs(p, L, n, rng, top):
     2^22 - 1: random canonical values, then up to 63 * 2^16 borrowed from
     each limb into the one below it (the value is unchanged). Lanes 0-3 hold
     0, p, p - 1 and top * p - 1."""
-    vals = [int.from_bytes(rng.bytes(40), "little") % (top * p)
+    nbytes = max(40, (top * p).bit_length() // 8 + 8)
+    vals = [int.from_bytes(rng.bytes(nbytes), "little") % (top * p)
             for _ in range(n)]
     vals[:4] = [0, p, p - 1, top * p - 1]
     x = ints_to_limbs(vals, L).astype(np.int64)
@@ -73,11 +76,12 @@ def _canon_j(jit, x):
     return np.asarray(jit["canon"](x))
 
 
-@pytest.mark.parametrize("which", ["fp", "fr"])
+@pytest.mark.parametrize("which", ["fp", "fr", "bls-fp"])
 def test_mul_matches_jax_at_lazy_edges(which):
     """mul on inputs at the lazy contract's edges (value < 64 p, limbs up
     to 2^22 - 1) equals kzg_tpu's, equals a*b*R^-1 mod p, and returns
-    exact 16-bit limbs with value < 1.1 p. mul_many equals the single muls."""
+    exact 16-bit limbs with value < 1.1 p. mul_many equals the single muls.
+    bls-fp: the same on BLS12-381's Fp, 25 limbs (K1's 25-limb build)."""
     F, _, jit = _fields(which)
     p, L = F.modulus, F.L
     rng = np.random.default_rng(SEED)

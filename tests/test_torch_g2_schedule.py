@@ -12,11 +12,14 @@ p, limbs < 2^22). G1's plain version itself goes past 64 p (its lazy
 subtractions add 180 p and 194 p, and 3b (X1Z2 + X2Z1) reaches ~6 x 181
 p), so there no product input may be larger, in value or limbs, than the
 largest the plain version gives Field.mul, and every product a b must stay
-below R p (output < 2 p). No JAX call: test_torch_groups.py ties the plain
-versions to kzg_tpu.
+below R p (output < 2 p). The BLS12-381 cases run the same schedules at 25
+limbs (BLS12-381's Fp) with the same checks, except the G1 add's product
+bound, which is larger there (test_add_schedule_matches_plain). No JAX
+call: test_torch_groups.py ties the plain versions to kzg_tpu.
 """
 
 import functools
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -33,8 +36,8 @@ N = 6
 
 
 @functools.lru_cache(maxsize=None)
-def _batch(grp):
-    ctx = get_context("BN254", "cpu")
+def _batch(grp, curve="BN254"):
+    ctx = get_context(curve, "cpu")
     J, og = (ctx.g2, G2(ctx.cp)) if grp == "g2" else (ctx.g1, G1(ctx.cp))
     rng = np.random.default_rng(SEED)
     pts = [og.mul(int(k), og.gen) for k in rng.integers(1, 1 << 20, N)]
@@ -47,7 +50,8 @@ def _batch(grp):
     p = ctx.cp.p
 
     def rand():
-        return int.from_bytes(rng.bytes(40), "little") % p
+        return int.from_bytes(rng.bytes(40 if p.bit_length() < 300 else 56),
+                              "little") % p
 
     def rescaled(pp):
         P = J.encode_points(pp)
@@ -82,16 +86,18 @@ def _plain_stats(J, fn, monkeypatch):
     return out, stats
 
 
-def _check_bounds(grp, J, stats, plain):
+def _check_bounds(grp, J, stats, plain, ab_limit=1):
     """G2: the mul contract. G1: no product input above the plain
-    version's own, in value or limbs, and a b < R p for every product."""
+    version's own, in value or limbs, and a b < ab_limit R p for every
+    product."""
     B = J.F.base if J.is_fp2 else J.F
     if grp == "g2":
         _check_contract(stats, B.modulus)
         return
     assert 0 < stats["value"] <= plain["value"]
     assert 0 < stats["limb"] <= plain["limb"] < 1 << 22
-    assert max(stats["ab"], plain["ab"]) < (1 << (16 * B.L)) * B.modulus
+    assert max(stats["ab"], plain["ab"]) < \
+        ab_limit * (1 << (16 * B.L)) * B.modulus
 
 
 def _fresh(J, got):
@@ -112,12 +118,29 @@ def _packed_pair(J, A, B):
     return both[:, :N], both[:, N:]
 
 
-@pytest.mark.parametrize("grp,with_reset", [
-    pytest.param("g2", False, id="False"), pytest.param("g2", True, id="True"),
-    pytest.param("g1", False, id="g1-False"),
-    pytest.param("g1", True, id="g1-True")])
-def test_add_schedule_matches_plain(grp, with_reset, monkeypatch):
-    J, og, P, Q, pts, qts = _batch(grp)
+# The BLS12-381 G1 add's widest product: with inputs below 1.1 p the
+# products t0..tC are below 1.01 p, the lazy sub(k = 16) adds 247 p
+# (lift_limbs(16) on BLS12-381's Fp), so t4, t5 < 248.01 p with exact
+# limbs and G = 3b t5 = 12 t5 < 2976.2 p with limbs up to 12 x 65535; its
+# product with t4 is a b < 738,120 p^2 < 1.15 R p (R = 2^400 > 645,173 p),
+# so that product's output (a b + m p) / R is below 2.15 p, not the 2 p of
+# a b < R p (BN254: 1082 p, a b < 0.44 R p). Every other G1 product stays
+# below R p; the G1 doubling and G2 keep the BN254 bounds.
+BLS_G1_ADD_AB = Fraction(115, 100)
+
+
+@pytest.mark.parametrize("grp,with_reset,curve", [
+    pytest.param("g2", False, "BN254", id="False"),
+    pytest.param("g2", True, "BN254", id="True"),
+    pytest.param("g1", False, "BN254", id="g1-False"),
+    pytest.param("g1", True, "BN254", id="g1-True"),
+    pytest.param("g2", True, "BLS12381", id="bls-True"),
+    pytest.param("g1", True, "BLS12381", id="bls-g1-True")])
+def test_add_schedule_matches_plain(grp, with_reset, curve, monkeypatch):
+    """On BLS12-381 the G1 add's products are held to a b < 1.15 R p
+    (BLS_G1_ADD_AB: the output bound 2.15 p derived above), and the
+    widest one must reach past R p, as the derivation says it can."""
+    J, og, P, Q, pts, qts = _batch(grp, curve)
     reset = torch.tensor([i % 3 == 1 for i in range(N)]) if with_reset \
         else None
     stats = {}
@@ -132,14 +155,24 @@ def test_add_schedule_matches_plain(grp, with_reset, monkeypatch):
         sums = [b if s else c for b, s, c in zip(qts, reset.tolist(), sums)]
     assert J.unpack_affine(packed) == sums
     _fresh(J, got)
-    _check_bounds(grp, J, stats, plain)
+    if curve == "BLS12381" and grp == "g1":
+        _check_bounds(grp, J, stats, plain, BLS_G1_ADD_AB)
+        R = 1 << (16 * J.F.L)
+        assert plain["ab"] > R * J.F.modulus
+        assert stats["value"] > 2900 * J.F.modulus
+    else:
+        _check_bounds(grp, J, stats, plain)
 
 
-@pytest.mark.parametrize("grp,times", [
-    pytest.param("g2", 1, id="1"), pytest.param("g2", 3, id="3"),
-    pytest.param("g1", 1, id="g1-1"), pytest.param("g1", 3, id="g1-3")])
-def test_dbl_schedule_matches_plain(grp, times, monkeypatch):
-    J, og, P, _, pts, _ = _batch(grp)
+@pytest.mark.parametrize("grp,times,curve", [
+    pytest.param("g2", 1, "BN254", id="1"),
+    pytest.param("g2", 3, "BN254", id="3"),
+    pytest.param("g1", 1, "BN254", id="g1-1"),
+    pytest.param("g1", 3, "BN254", id="g1-3"),
+    pytest.param("g2", 3, "BLS12381", id="bls-3"),
+    pytest.param("g1", 3, "BLS12381", id="bls-g1-3")])
+def test_dbl_schedule_matches_plain(grp, times, curve, monkeypatch):
+    J, og, P, _, pts, _ = _batch(grp, curve)
     stats = {}
     got = team.plain_dbl(J, P, times, stats=stats)
 
@@ -202,3 +235,32 @@ def test_g1_table_fits_the_kernel():
                      F.lift_limbs(32)[1] * F.modulus]
     assert val[0] == F.params.mont_r % F.modulus
     assert val[1] == 3 * J._b3_int * F.params.mont_r % F.modulus
+
+
+def test_tables_fit_the_kernel_at_25_limbs():
+    """BLS12-381 (Fp of 25 limbs): both groups' tables fit the kernels'
+    image with BN254's rounds (the table does not depend on L), the constant
+    rows are ROWS x 25 words with G1's slacks the lifts' m p (m = 247 and
+    266), and each kernel kind's shared memory per block (team.cuh
+    team_prepare: 8 L constant words, then slots x L x lanes per block)
+    stays within what one block may hold (232,448 bytes)."""
+    ctx = get_context("BLS12381", "cpu")
+    F = ctx.fp
+    assert F.L == 25
+    for J, rounds in ((ctx.g1, [3, 1, 3, 1]), (ctx.g2, [7, 1, 4, 1])):
+        w = team.table(J)
+        _fits(w)
+        assert team.rounds(w) == rounds
+        rows = team.rows(J)
+        assert len(rows) == team.ROWS * F.L
+        for k in range(team.KINDS):
+            per, warps, slots = w[3 * k:3 * k + 3]
+            smem = 4 * (team.ROWS * F.L + slots * F.L * (32 // per) * warps)
+            assert smem <= 232448
+    rows = team.rows(ctx.g1)
+    val = [sum(v << (16 * i) for i, v in enumerate(rows[r * F.L:
+                                                        (r + 1) * F.L]))
+           for r in range(team.ROWS)]
+    assert [F.lift_limbs(k)[1] for k in (16, 32)] == [247, 266]
+    assert val[3:6] == [0, 247 * F.modulus, 266 * F.modulus]
+    assert val[1] == 3 * ctx.g1._b3_int * F.params.mont_r % F.modulus
