@@ -6,9 +6,9 @@
 Phases (each prints one line with what it checked and its time; any
 mismatch or exception exits non-zero before the result line):
   1. build   — compiles the port's CUDA sources with nvcc for sm_90a, one
-               process per source and limb count (all four at 17 limbs,
-               mont_mul, g1_ops and g2_ops again at 25 limbs for
-               BLS12-381's Fp), all started together, prints each build's
+               process per source and limb count (all four at 17 limbs for
+               BN254 and BLS12-381's Fr, at 25 for BLS12-381's Fp and at 11
+               for BN158), all started together, prints each build's
                ptxas register, stack and spill lines and the card's name and
                power limit;
   2. kernels — K1 (Montgomery multiply) at 4096, 131072 and 811008 lanes on
@@ -25,24 +25,33 @@ mismatch or exception exits non-zero before the result line):
                (exact equality of limbs or of canonical affine points),
                outputs checked fresh (exact 16-bit limbs, < 1.1p) and
                sampled lanes against python-int arithmetic; then the same
-               checks on BLS12-381 (K6 aside, which is built for 17 limbs
-               only): K1 at 25 limbs on Fp, with lanes whose inputs reach
-               the G1 add's widest product operands (12 x 247 p with limbs
-               up to 786,420, times ~248 p), and the 17-limb K1 on
-               BLS12-381's Fr; K2-K5 at 25 limbs (K2's products reach
-               ~2964 p, checked on the plain schedule's statistics);
+               checks on BLS12-381: K1 at 25 limbs on Fp, with lanes whose
+               inputs reach the G1 add's widest product operands (12 x 247
+               p with limbs up to 786,420, times ~248 p), and the 17-limb
+               K1 on BLS12-381's Fr; K2-K6 at 25 limbs (K2's products reach
+               ~2964 p, checked on the plain schedule's statistics); and on
+               BN158: K1 at 11 limbs on Fp and Fr, with lanes at the G1
+               add's widest operands (~186 p times ~186 p) and at the G2
+               Karatsuba's (8 (c0 + c1) of qnr = 5 products, limbs up to
+               56 x 65535), and K2-K6 at 11 limbs (G1 with 3b = 39 a
+               product, G2 with qnr = 5);
   3. golden  — reproduces the BN254 and the BLS12-381 golden bytes of
                tests/fixtures/golden/ from their 48-term setup files,
                verifies the whole-message proof and refutes a changed
-               byte;
+               byte; on BN158 (no golden file) an 8-term setup from a
+               known secret s: the commitment and two proofs equal the
+               python-int oracle's [p(s)] G1 and [q(s)] G1, verify true,
+               refutation false;
   4. main    — the main path of bench.py at full size: from_secret setup of
                5000 terms (with its oracle self-check), from_blob of 4097
                characters (degree 4096), create_commit, create_proof(p, 0, 1),
-               verify_proof true and a one-bit refutation false; cold times,
-               warm medians and each kernel's launches on the path (K1-K5
-               must all run); then one warm from_blob, commit, proof and
-               verify under torch.profiler (device time, busy share, launches and the
-               kernels that take the most device time);
+               verify_proof true and a one-bit refutation false (commitment
+               and proof also equal the oracle's [p(s)] G1 and [q(s)] G1);
+               cold times, warm medians and each kernel's launches on the
+               path (K1-K5 must all run); then one warm from_blob, commit,
+               proof and verify under torch.profiler (device time, busy
+               share, launches and the kernels that take the most device
+               time);
   5. msm     — the merge strategy's path (msm over arbitrary bases, the
                JAX package's TPU path for msm), on the main phase's setup
                and polynomial: G1 over the first 4097 setup points equals
@@ -55,16 +64,20 @@ mismatch or exception exits non-zero before the result line):
                reference's three-curve harness) at the same sizes, with its
                own main_path_bls and profile_bls JSON lines; K1 (17 limbs,
                Fr: the NTT butterflies and the pairing's tower products are
-               Fp products at 25), K1-K5 at 25 limbs must all run;
-  7. kernels line — each kernel held against its plain version once more at
+               Fp products at 25), K1-K5 at 25 limbs must all run; then its
+               msm phase (msm_bls JSON line, K6 at 25 limbs must run);
+  7. main_bn158 — the same on BN158 (11 limbs, qnr = 5, an M-twist with a
+               BN loop and tail), main_path_bn158 and profile_bn158 lines,
+               K1-K5 at 11 limbs must all run; then its msm phase
+               (msm_bn158, K6 at 11 limbs must run);
+  8. kernels line — each kernel held against its plain version once more at
                the heaviest shape its path gave it, then one JSON object:
-               each kernel's launches on the main and msm paths (the
-               BLS12-381 entries: on main_bls), its largest error against
-               the plain version, its device time per launch, the plain
-               version's time per call, and the bound at that shape; before
-               it the "sweep" line: K2-K6 held against their plain versions
-               and timed at every distinct shape the two paths launched, and
-               K2-K5 at 25 limbs at every shape main_bls launched, with each
+               each kernel's launches on its curve's main and msm paths,
+               its largest error against the plain version, its device time
+               per launch, the plain version's time per call, and the bound
+               at that shape; before it the "sweep" line: K2-K6 of each
+               limb count held against their plain versions and timed at
+               every distinct shape their curve's paths launched, with each
                path's device time in the kernel (path_ms = sum of launches x
                ms) and above its bound (gap_ms = sum of launches x (ms -
                bound)); K6 also timed from a merge level's stride-2 halves,
@@ -77,7 +90,9 @@ runs phase 4 alone on BN254 (main_path and profile lines, no result
 line).
 """
 
+import collections
 import json
+import math
 import os
 import random
 import statistics
@@ -100,16 +115,19 @@ EDGE_LANES = (1, 5, 31, 32, 33, 127, 8193)   # K2-K6 ragged team edges
 MSM_POINTS = DEGREE + 1                  # the merge msm of the msm phase
 MSM_SCAN_POINTS = 256                    # its log and scan strategies
 MAIN_KERNELS = ("mont_mul", "g1_add", "g1_dbl", "g2_add", "g2_dbl")
-MSM_KERNELS = ("merge_combine_g1", "merge_combine_g2")
 BLS = "BLS12381"
-LIMBS = (17, 25)                         # the limb counts the port builds
-# the kernels of the BLS12-381 main path, by their launch counters: K1 at
-# 17 limbs on Fr, K1-K5 at 25 limbs on Fp
-BLS_KERNELS = ("mont_mul", "mont_mul@25", "g1_add@25", "g1_dbl@25",
-               "g2_add@25", "g2_dbl@25")
-# the kernel line's entries of the BLS12-381 path: name -> launch counter
-BLS_ENTRIES = {"mont_mul (BLS12-381 Fr)": "mont_mul",
-               **{k: k for k in BLS_KERNELS[1:]}}
+BN158 = "BN158"
+# the kernels of each curve's main path, by their launch counters: BN254
+# at 17 limbs; BLS12-381 K1 at 17 limbs on Fr, K1-K5 at 25 on Fp; BN158
+# K1-K5 at 11 (Fp and Fr)
+PATH_KERNELS = {"BN254": MAIN_KERNELS,
+                BLS: ("mont_mul", "mont_mul@25", "g1_add@25", "g1_dbl@25",
+                      "g2_add@25", "g2_dbl@25"),
+                BN158: tuple(f"{k}@11" for k in MAIN_KERNELS)}
+# each curve's phase label and JSON suffix
+LABEL = {"BN254": ("main", ""), BLS: ("main_bls", "_bls"),
+         BN158: ("main_bn158", "_bn158")}
+MAIN_SECRET = 0xBEEF_CAFE_0123           # bench.py's setup secret
 # published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores (67 TFLOP/s, an FMA counted as two
 # operations), taken as the ceiling for the kernels' integer
@@ -307,10 +325,10 @@ def fresh_points(G, A, what):
 def phase_build():
     from kzg_tpu_torch.ops import cuda
     t0 = time.time()
-    secs = cuda.build(limbs=LIMBS)
+    secs = cuda.build(limbs=cuda.LIMBS)
     card = smi()
-    for L in LIMBS:
-        for name in cuda.LIMB_SOURCES[L]:
+    for L in cuda.LIMBS:
+        for name in cuda.SOURCES:
             for ln in cuda.build_log(name, L).splitlines():
                 if "registers" in ln or "spill" in ln or "stack" in ln:
                     print(f"[build] {cuda.kernel_key(name, L)}: "
@@ -329,29 +347,57 @@ def k1_entry(curve, F):
     return cuda.kernel_key("mont_mul", F.L)
 
 
-def wide_operands(F, lanes, rng):
-    """(L, lanes) limbs of the BLS12-381 G1 add's widest product inputs
-    (its G = 3b (X1Z2 + X2Z1) = 12 t5, t5 < 248 p with exact limbs, times
-    a value below 248 p): a up to ~2976 p with limbs up to 12 x 65535 =
-    786,420, a b up to ~1.15 R p."""
+def wide_operands(curve, F, lanes, rng):
+    """(L, lanes) limbs of the widest product inputs that the point
+    formulas give K1's field F of `curve`. BLS12-381 Fp: the G1 add's G =
+    3b (X1Z2 + X2Z1) = 12 t5, t5 < 248 p with exact limbs, times a value
+    below 248 p: a up to ~2976 p with limbs up to 12 x 65535 = 786,420, a b
+    up to ~1.15 R p. BN158 Fp: half the lanes the G1 add's t3 M (exact
+    limbs, each below ~186 p), half the G2 doubling's Karatsuba sums of
+    qnr = 5 products, 8 (v0 + 5 v1 + v) times (v0 + 5 v1 + v) with fresh
+    v's (limbs up to 56 x 65535, ~56 p times ~7 p)."""
     from kzg_tpu_torch.fields.mont import ints_to_limbs
     p = F.modulus
-    t5 = [rng.randrange(246 * p, 248 * p) for _ in range(lanes)]
-    b = [rng.randrange(246 * p, 248 * p) for _ in range(lanes)]
-    a = torch.from_numpy(12 * ints_to_limbs(t5, F.L).astype("int64"))
-    b = torch.from_numpy(ints_to_limbs(b, F.L).astype("int64"))
-    return a.to(F.device), b.to(F.device)
+
+    def limbs(vals, scale=1):
+        return scale * ints_to_limbs(vals, F.L).astype("int64")
+
+    def fresh(n):
+        return [rng.randrange(p) for _ in range(n)]
+
+    if curve == BLS:
+        a = limbs([rng.randrange(246 * p, 248 * p) for _ in range(lanes)],
+                  12)
+        b = limbs([rng.randrange(246 * p, 248 * p) for _ in range(lanes)])
+    else:
+        h = lanes // 2
+        a = limbs([rng.randrange(184 * p, 186 * p) for _ in range(h)])
+        b = limbs([rng.randrange(184 * p, 186 * p) for _ in range(h)])
+        k = lanes - h
+        sa = limbs(fresh(k)) + 5 * limbs(fresh(k)) + limbs(fresh(k))
+        sb = limbs(fresh(k)) + 5 * limbs(fresh(k)) + limbs(fresh(k))
+        a = torch.cat([torch.from_numpy(a), 8 * torch.from_numpy(sa)], 1)
+        b = torch.cat([torch.from_numpy(b), torch.from_numpy(sb)], 1)
+    return torch.as_tensor(a).to(F.device), torch.as_tensor(b).to(F.device)
+
+
+# the least largest product input (in p) that the checked adds of 8200
+# lanes must reach on the add's schedule, per curve and group: the G1 adds'
+# lifts (lift_limbs(16): 180 p, 247 p, 185 p; BLS12-381's 12 t5 ~2976 p)
+# and the G2 adds' Karatsuba sums
+WIDEST = {("BN254", "g1"): 1000, ("BN254", "g2"): 25,
+          (BLS, "g1"): 2900, (BLS, "g2"): 25,
+          (BN158, "g1"): 180, (BN158, "g2"): 25}
 
 
 def phase_kernels(dev, errs, curve="BN254"):
     """Each kernel against its plain version on the same card tensors, on
-    `curve`'s fields and groups (K6 where it is built for their limb
-    count)."""
+    `curve`'s fields and groups."""
     from kzg_tpu_torch.context import get_context
     from kzg_tpu_torch.ops import cuda, team
     from kzg_tpu_torch.ops.msm import MSMEngine
     ctx = get_context(curve, dev)
-    seed = SEED if curve == "BN254" else SEED + 7
+    seed = SEED + {"BN254": 0, BLS: 7, BN158: 9}[curve]
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = random.Random(seed)
     L = ctx.fp.L
@@ -367,9 +413,10 @@ def phase_kernels(dev, errs, curve="BN254"):
             a = lazy_limbs(F, lanes, gen)
             b = lazy_limbs(F, lanes, gen)
             wide = 0
-            if curve == BLS and F is ctx.fp:      # the G1 add's widest
+            if curve != "BN254" and F is ctx.fp:  # the point formulas' widest
                 wide = 64
-                a[:, -wide:], b[:, -wide:] = wide_operands(F, wide, rng)
+                a[:, -wide:], b[:, -wide:] = wide_operands(curve, F, wide,
+                                                           rng)
             k = cuda.mont_mul(F, a, b)
             ref = F._mul_plain(a, b)
             sync()
@@ -395,8 +442,8 @@ def phase_kernels(dev, errs, curve="BN254"):
          f", Fr: {k1_entry(curve, ctx.fr)}) == plain (bit-exact limbs, "
          f"canonical values, 128 lanes vs python ints) at {K1_LANES} lanes, "
          "lazy inputs up to 2^22 limbs"
-         + (", 64 lanes per width at the G1 add's widest operands (output "
-            "< a b / R + p)" if curve == BLS else ""))
+         + ("" if curve == "BN254" else ", 64 lanes per width at the point "
+            "formulas' widest operands (output < a b / R + p)"))
 
     # K2 / K3 and K4 / K5 ------------------------------------------------
     lanes = K23_LANES
@@ -432,29 +479,25 @@ def phase_kernels(dev, errs, curve="BN254"):
             for i in sample:
                 check(got[i] == og.mul(1 << times, pts_p[i]),
                       f"{kdbl} times={times} lane {i} vs oracle")
-        widest = ""
-        if not G.is_fp2:       # the largest product input of the schedule
-            stats = {}
-            team.plain_add(G, {c: v[..., :64] for c, v in P.items()},
-                           {c: v[..., :64] for c, v in Q.items()},
-                           stats=stats)
-            p = p_of(G)
-            check(curve != BLS or stats["value"] > 2900 * p,
-                  f"{kadd}: the checked adds miss the widest operands")
-            widest = (f"; K2's product inputs reach {stats['value'] / p:.1f}"
-                      f" p, limbs {stats['limb']}, a b = "
-                      f"{stats['ab'] / (p << (16 * L)):.3f} R p")
+        # the largest product inputs of the add's schedule on these lanes
+        stats = {}
+        team.plain_add(G, {c: v[..., :64] for c, v in P.items()},
+                       {c: v[..., :64] for c, v in Q.items()}, stats=stats)
+        p = p_of(G)
+        check(stats["value"] > WIDEST[curve, grp] * p,
+              f"{kadd}: the checked adds miss the widest operands")
+        widest = (f"; the add's product inputs reach "
+                  f"{stats['value'] / p:.1f} p, limbs {stats['limb']}, a b "
+                  f"= {stats['ab'] / (p << (16 * L)):.4f} R p")
         line("kernels", t0, f"{kadd} (with/without reset mask) and {kdbl} "
              f"(times 1, 8) == plain as canonical affine points over {lanes} "
              "lanes incl. infinity/doubling/negation; outputs exact 16-bit, "
              f"< 1.1p; 24 lanes vs oracle{widest}")
         edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs)
-        if "msm_merge" not in cuda.LIMB_SOURCES[L]:
-            continue
 
         # K6 on the same group: aR, bL = P, Q; aL, bR a second pair
         t0 = time.time()
-        name = "merge_combine_g2" if G.is_fp2 else "merge_combine_g1"
+        name = cuda.kernel_key(f"merge_combine_{grp}", L)
         aL, bR, _, _, _ = inputs(ctx, lanes, rng)
         masks = [torch.rand(lanes, generator=gen, device=dev) < 0.5
                  for _ in range(3)]
@@ -558,7 +601,9 @@ def merge_edge_widths(G, aL, aR, bL, bR, errs):
     limb for limb."""
     from kzg_tpu_torch.ops import cuda
     t0 = time.time()
-    name = "merge_combine_g2" if G.is_fp2 else "merge_combine_g1"
+    L = G.F.base.L if G.is_fp2 else G.F.L
+    name = cuda.kernel_key("merge_combine_g2" if G.is_fp2
+                           else "merge_combine_g1", L)
     dev = aR["x"].device
     for n in EDGE_LANES:
         ops = [{k: v[..., :n].contiguous() for k, v in X.items()}
@@ -618,15 +663,90 @@ def phase_golden(dev, curve="BN254"):
          "refutation false")
 
 
+def poly_at(coeffs, x, r):
+    """A polynomial's value at x mod r (python ints, Horner)."""
+    v = 0
+    for c in reversed(coeffs):
+        v = (v * x + c) % r
+    return v
+
+
+def oracle_commit(og, r, coeffs, s):
+    """The commitment of a setup made from secret s: the s-power MSM of the
+    coefficients, [p(s)] G1 (python ints)."""
+    return og.mul(poly_at(coeffs, s, r), og.gen)
+
+
+def oracle_proof(og, r, coeffs, off, ln, s):
+    """The proof of points off .. off + ln - 1 under a setup made from s:
+    [q(s)] G1 with q = (p - I) / Z, I the interpolant of p at the points and
+    Z their vanishing polynomial, so q(s) = (p(s) - I(s)) / Z(s)."""
+    xs = [(off + i) % r for i in range(ln)]
+    at_s = 0
+    for j, xj in enumerate(xs):
+        num = den = 1
+        for k, xk in enumerate(xs):
+            if k != j:
+                num, den = num * (s - xk) % r, den * (xj - xk) % r
+        at_s += poly_at(coeffs, xj, r) * num * pow(den, -1, r)
+    z = math.prod(s - x for x in xs) % r
+    q = (poly_at(coeffs, s, r) - at_s) * pow(z, -1, r) % r
+    return og.mul(q, og.gen)
+
+
+def check_oracle(pc, s, data, p, c, proofs, what):
+    """from_blob, the commitment and the proofs {(off, ln): proof} of a
+    setup made from secret s against python-int arithmetic: p(i) = the i-th
+    character at 16 points (all where the message is shorter), [p(s)] G1
+    and [q(s)] G1."""
+    from kzg_tpu_torch.refmodel.model import G1
+    og, r = G1(pc.cp), pc.cp.r
+    coeffs = p.coeffs
+    check(len(coeffs) <= len(data), f"{what}: from_blob degree")
+    at = range(len(data)) if len(data) <= 16 else \
+        random.Random(len(data)).sample(range(len(data)), 16)
+    check(all(poly_at(coeffs, i, r) == ord(data[i]) for i in at),
+          f"{what}: from_blob's polynomial misses the message")
+    check(c.curve_point == oracle_commit(og, r, coeffs, s),
+          f"{what}: commitment != the oracle's [p(s)] G1")
+    for (off, ln), pr in proofs.items():
+        check(pr.curve_point == oracle_proof(og, r, coeffs, off, ln, s),
+              f"{what}: proof ({off}, {ln}) != the oracle's [q(s)] G1")
+
+
+def phase_oracle(dev, curve=BN158):
+    """`curve` without a golden file: an 8-term setup from a known secret
+    on the card; from_blob("curves!"), the commitment and the proofs of (1,
+    3) and (0, 1) equal the python-int oracle's; the first verifies, a
+    changed byte is refuted."""
+    import kzg_tpu_torch as kzg
+    t0 = time.time()
+    pc = kzg.init(curve, device=dev)
+    s, msg = 0xC0FFEE_1234_5678_9ABC_DEF0, "curves!"
+    ts = kzg.trusted_setup.from_secret(s, 8)
+    p = kzg.poly.from_blob(kzg.blob.from_string(msg))
+    c = ts.create_commit(p)
+    proofs = {k: ts.create_proof(p, *k) for k in ((1, 3), (0, 1))}
+    check_oracle(pc, s, msg, p, c, proofs, f"{curve} 8-term setup")
+    check(ts.verify_proof(c, proofs[1, 3], kzg.blob.from_string(msg[1:4], 1)),
+          f"{curve}: the proof of (1, 3) verifies")
+    check(not ts.verify_proof(c, proofs[1, 3], kzg.blob.from_string("uzv", 1)),
+          f"{curve}: a changed byte is refuted")
+    line("golden", t0, f"{curve} 8-term setup from a known secret: "
+         "from_blob('curves!'), commitment and proofs (1, 3), (0, 1) == the "
+         "python-int oracle's [p(s)] G1, [q(s)] G1; verify true, refutation "
+         "false")
+
+
 def phase_main(dev, card, curve="BN254"):
     """bench.py's path on `curve`; its JSON lines are main_path and profile
-    on BN254, main_path_bls and profile_bls on BLS12-381."""
+    on BN254, main_path_bls and profile_bls on BLS12-381, main_path_bn158
+    and profile_bn158 on BN158."""
     import kzg_tpu_torch as kzg
     from kzg_tpu_torch.ops import cuda
-    label = "main" if curve == "BN254" else "main_bls"
-    sfx = "" if curve == "BN254" else "_bls"
-    required = MAIN_KERNELS if curve == "BN254" else BLS_KERNELS
-    kzg.init(curve, device=dev)
+    label, sfx = LABEL[curve]
+    required = PATH_KERNELS[curve]
+    pc = kzg.init(curve, device=dev)
     random.seed(1)                       # bench.py's message
     data = "".join(chr(random.randrange(32, 127)) for _ in range(DEGREE + 1))
     per_op = {}
@@ -644,7 +764,7 @@ def phase_main(dev, card, curve="BN254"):
         return out, ms
 
     ts, setup_ms = step("setup", lambda: kzg.trusted_setup.from_secret(
-        0xBEEF_CAFE_0123, SETUP_TERMS))
+        MAIN_SECRET, SETUP_TERMS))
     p, blob_ms = step("from_blob",
                       lambda: kzg.poly.from_blob(kzg.blob.from_string(data)))
     check(p._n == DEGREE + 1, "from_blob length")
@@ -661,8 +781,10 @@ def phase_main(dev, card, curve="BN254"):
     for name in required:
         check(launches[name] > 0, f"kernel {name} not launched on the "
               f"{label} path")
+    check_oracle(pc, MAIN_SECRET, data, p, c, {(0, 1): pr}, label)
     line(label, t_all, f"{curve} setup({SETUP_TERMS}) {setup_ms:.0f} ms "
-         f"incl. self-check, from_blob(deg {DEGREE}) {blob_ms:.0f} ms; verify "
+         f"incl. self-check, from_blob(deg {DEGREE}) {blob_ms:.0f} ms; "
+         "commitment and proof == the oracle's [p(s)] G1, [q(s)] G1; verify "
          f"true, refutation false; launches {launches}")
 
     _, _, commit_ms = host_ms(lambda: ts.create_commit(p), WARM_RUNS)
@@ -690,15 +812,19 @@ def phase_main(dev, card, curve="BN254"):
 
 def phase_msm(card, main_state):
     """The merge strategy's path: msm over arbitrary bases (Horner over the
-    windows) on the main phase's setup points and polynomial. The counts
-    are read around the merge msm calls alone (cold and warm runs); the
-    references and decodes come after."""
+    windows) on the main phase's setup points and polynomial, on the curve
+    that phase initialised; its JSON line is msm, msm_bls or msm_bn158. The
+    counts are read around the merge msm calls alone (cold and warm runs);
+    the references and decodes come after."""
     from kzg_tpu_torch.ops import cuda
     from kzg_tpu_torch.ops.msm import MSMEngine
     from kzg_tpu_torch.protocol.api import _ctx
     ts, p, c = main_state
     pc = _ctx()
     ctx = pc.ctx
+    label = "msm" + LABEL[ctx.cp.name][1]
+    required = [cuda.kernel_key(f"merge_combine_{grp}", ctx.fp.L)
+                for grp in ("g1", "g2")]
     r = ctx.cp.r
     n = MSM_POINTS
     sraw = pc.fr_raw(p.device_coeffs(pc))
@@ -727,9 +853,9 @@ def phase_msm(card, main_state):
                         for k in after}}
     launches = cuda.counts()
     shapes = {k: dict(v.shapes) for k, v in cuda.KERNELS.items()}
-    for name in MSM_KERNELS:
-        check(launches[name] > 0, f"kernel {name} not launched on the msm "
-              "path")
+    for name in required:
+        check(launches[name] > 0, f"kernel {name} not launched on the "
+              f"{label} path")
     check(affine(ctx.g1, outs["g1"]) == c.curve_point,
           f"msm g1 merge over {n} points != the commitment")
     want2 = affine(ctx.g2, ctx.msm_g2.msm_shifted(
@@ -750,9 +876,11 @@ def phase_msm(card, main_state):
         f"merge_{grp}": (lambda eng=MSMEngine(G, ctx.fr, r, strategy="merge"),
                          P=first(pts, n): eng.msm(sraw, P))
         for grp, G, pts in groups})
-    print(json.dumps({"msm": {"card": card, "warm_runs": WARM_RUNS, **res,
+    print(json.dumps({label: {"card": card, "curve": ctx.cp.name,
+                              "warm_runs": WARM_RUNS, **res,
                               "profile": prof}}), flush=True)
-    line("msm", t_all, f"merge msm over {n} points: G1 == commitment (cold "
+    line(label, t_all, f"{ctx.cp.name} merge msm over {n} points: G1 == "
+         "commitment (cold "
          f"{res['g1']['cold_ms']:.1f} / warm {res['g1']['warm_median_ms']:.1f}"
          f" ms), G2 == chunked (cold {res['g2']['cold_ms']:.1f} / warm "
          f"{res['g2']['warm_median_ms']:.1f} ms); log and scan over {m} "
@@ -816,12 +944,17 @@ def point_work(L, comps, coords, muls, lanes):
             muls * 2 * macs_per_mul(L) * lanes)
 
 
-# per group: base elements of a coordinate, and the base Montgomery products
-# the plain add and doubling need (Curve._add_plain, _dbl_plain; a scale by
-# a small constant is not a product). G1: an add does 12 products, a
-# doubling 9. G2: an add does 14 Fp2 products of 3 base products, a
-# doubling 9 Fp2 products
-POINT_WORK = {"g1": (1, 12, 9), "g2": (2, 42, 27)}
+def point_muls(G):
+    """(base elements of a coordinate, base Montgomery products of the
+    plain add, of the plain doubling) of group G (Curve._add_plain,
+    _dbl_plain; a scale by a small constant is not a product). G1: an add
+    does 12 products and a doubling 9, and 14 and 10 where 3b > 14 is a
+    product (BN158). G2: an add does 14 Fp2 products of 3 base products, a
+    doubling 9 Fp2 products."""
+    if G.is_fp2:
+        return 2, 42, 27
+    b3_mul = G._b3_int > 14
+    return 1, 12 + 2 * b3_mul, 9 + b3_mul
 
 
 def merge_inputs(base_p, base_q, lanes, gen):
@@ -844,21 +977,19 @@ def merge_work(L, comps, add_muls, lanes):
     return nbytes + 3 * lanes, ops
 
 
-def merge_sweep(paths, G, base_p, base_q, bound, errs, gen):
+def merge_sweep(paths, ctx, G, base_p, base_q, bound, errs, gen):
     """K6 of G's group at every width the paths launched: held exactly
     against MSMEngine._combine_plain (canonical affine points of mid, newL,
     newR) with random masks, then timed from contiguous inputs (ms, the
     kernel alone) and from the stride-2 halves of interleaved sums, as a
     merge level gives them (halves_ms: the wrapper's call, with whatever
     copies it makes)."""
-    from kzg_tpu_torch.context import get_context
     from kzg_tpu_torch.ops import cuda
     from kzg_tpu_torch.ops.msm import MSMEngine
     grp = "g2" if G.is_fp2 else "g1"
-    name = f"merge_combine_{grp}"
-    comps, add_muls, _ = POINT_WORK[grp]
+    comps, add_muls, _ = point_muls(G)
     L = G.F.base.L if G.is_fp2 else G.F.L
-    ctx = get_context("BN254", base_p["x"].device)
+    name = cuda.kernel_key(f"merge_combine_{grp}", L)
     eng = MSMEngine(G, ctx.fr, ctx.cp.r, strategy="merge")
     keys = sorted({key for _, shp in paths.values()
                    for key in shp.get(name, {})})
@@ -898,8 +1029,8 @@ def gaps(rows, paths):
                       for r in rows) for path in paths}
 
 
-def sweep(paths, bases, bound, errs, gen, L=17):
-    """K2-K6 (at L limbs; K6 where it is built for L) at every distinct
+def sweep(paths, ctx, bases, bound, errs, gen):
+    """K2-K6 at the limb count of the context ctx's Fp, at every distinct
     shape of the paths: each held against its plain version (exact
     canonical affine points), then its device time per launch (kernel_ms)
     and bound; per path, path_ms = sum over shapes of the path's launches x
@@ -907,11 +1038,12 @@ def sweep(paths, bases, bound, errs, gen, L=17):
     Q)}. An add moves 9 coordinates, a chain 6 (K6: merge_sweep)."""
     from kzg_tpu_torch.ops import cuda
     res = {}
+    L = ctx.fp.L
     for kname in ("g1_add", "g1_dbl", "g2_add", "g2_dbl"):
         grp = kname[:2]
         name = cuda.kernel_key(kname, L)
         G, base_p, base_q = bases[grp]
-        comps, add_muls, dbl_muls = POINT_WORK[grp]
+        comps, add_muls, dbl_muls = point_muls(G)
         kadd, kdbl = getattr(cuda, f"{grp}_add"), getattr(cuda, f"{grp}_dbl")
         keys = sorted({key for _, shp in paths.values()
                        for key in shp.get(name, {})},
@@ -953,10 +1085,9 @@ def sweep(paths, bases, bound, errs, gen, L=17):
                          "bound_ms": b, "bound_by": by, "max_abs_err": err})
         res[name] = {"shapes": rows, "path_ms": path_ms,
                      "gap_ms": gaps(rows, paths)}
-    if "msm_merge" in cuda.LIMB_SOURCES[L]:
-        for grp in ("g1", "g2"):
-            res[f"merge_combine_{grp}"] = merge_sweep(paths, *bases[grp],
-                                                      bound, errs, gen)
+    for grp in ("g1", "g2"):
+        res[cuda.kernel_key(f"merge_combine_{grp}", L)] = merge_sweep(
+            paths, ctx, *bases[grp], bound, errs, gen)
     return res
 
 
@@ -967,10 +1098,11 @@ def bound(nbytes, ops):
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def phase_kernel_line(dev, paths, bls_paths, errs):
-    """paths: {path: (launches, shapes)} of the main and msm runs;
-    bls_paths: the same of the main_bls run, which the 25-limb kernels and
-    K1 on BLS12-381's Fr are counted and swept on."""
+def phase_kernel_line(dev, curve_paths, errs):
+    """curve_paths: {curve: {path: (launches, shapes)}} of each curve's main
+    and msm runs, which its kernels are counted and swept on (BLS12-381's
+    25-limb kernels and K1 on its Fr on main_bls and msm_bls, BN158's
+    11-limb kernels on main_bn158 and msm_bn158)."""
     from kzg_tpu_torch.context import get_context
     from kzg_tpu_torch.ops import cuda
     from kzg_tpu_torch.ops.msm import MSMEngine
@@ -1019,8 +1151,8 @@ def phase_kernel_line(dev, paths, bls_paths, errs):
                     shapes.setdefault(name, {})
                     shapes[name][key] = shapes[name].get(key, 0) + n
 
-        for F in ((ctx.fp,) if curve == "BN254" else (ctx.fr, ctx.fp)):
-            key = cuda.kernel_key("mont_mul", F.L)
+        k1 = {cuda.kernel_key("mont_mul", F.L): F for F in (ctx.fr, ctx.fp)}
+        for key, F in k1.items():       # one entry per instance of K1
             lanes = heaviest(shapes[key])
             a, b = lazy_limbs(F, lanes, gen), lazy_limbs(F, lanes, gen)
             entry(k1_entry(curve, F), key, on,
@@ -1031,7 +1163,7 @@ def phase_kernel_line(dev, paths, bls_paths, errs):
 
         bases = {}
         for grp, Gc, inputs in (("g1", G, g1_inputs), ("g2", G2, g2_inputs)):
-            comps, add_muls, dbl_muls = POINT_WORK[grp]
+            comps, add_muls, dbl_muls = point_muls(Gc)
             add = cuda.kernel_key(f"{grp}_add", L)
             dbl = cuda.kernel_key(f"{grp}_dbl", L)
             kadd = getattr(cuda, f"{grp}_add")
@@ -1059,9 +1191,7 @@ def phase_kernel_line(dev, paths, bls_paths, errs):
                   *point_work(L, comps, 6, dbl_muls * times, lanes),
                   {"lanes": lanes, "times": times})
 
-            if "msm_merge" not in cuda.LIMB_SOURCES[L]:
-                continue
-            name = f"merge_combine_{grp}"
+            name = cuda.kernel_key(f"merge_combine_{grp}", L)
             lanes = heaviest(shapes[name])
             aL, aR, bL, bR, masks = merge_inputs(base_p, base_q, lanes, gen)
             eng = MSMEngine(Gc, ctx.fr, ctx.cp.r, strategy="merge")
@@ -1070,18 +1200,20 @@ def phase_kernel_line(dev, paths, bls_paths, errs):
                   lambda: eng._combine_plain(aL, aR, bL, bR, *masks),
                   packed_all(Gc), *merge_work(L, comps, add_muls, lanes),
                   {"lanes": lanes})
-        return sweep(on, bases, bound, errs, gen, L)
+        return sweep(on, ctx, bases, bound, errs, gen)
 
-    swept = curve_entries("BN254", paths, SEED + 1)
-    swept.update(curve_entries(BLS, bls_paths, SEED + 8))
+    swept = {}
+    for curve, on in curve_paths.items():
+        swept.update(curve_entries(curve, on, SEED + {"BN254": 1, BLS: 8,
+                                                      BN158: 10}[curve]))
     print(json.dumps({"sweep": swept}), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     line("kernels", t0, "each kernel == its plain version at the heaviest "
          "shape its path gave it; ms = device time per launch (CUDA events, "
          "launches queued behind a spin kernel), event_ms and plain_ms = "
          "CUDA events around back-to-back calls (host gaps included; plain "
-         "= the PyTorch version on the same tensors); launches = the main "
-         "and msm paths' runs (BLS12-381 entries: the main_bls run's)")
+         "= the PyTorch version on the same tensors); launches = its "
+         "curve's main and msm paths' runs")
 
 
 def main_only(dev):
@@ -1116,16 +1248,19 @@ def main():
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     t_start = time.time()
     card = phase_build()
-    errs = dict.fromkeys(MAIN_KERNELS + MSM_KERNELS + tuple(BLS_ENTRIES), 0)
-    phase_kernels(dev, errs)
-    phase_kernels(dev, errs, BLS)
+    errs = collections.defaultdict(int)        # kernel entry -> max error
+    for curve in ("BN254", BLS, BN158):
+        phase_kernels(dev, errs, curve)
     phase_golden(dev)
     phase_golden(dev, BLS)
-    launches, shapes, state = phase_main(dev, card)
-    paths = {"main": (launches, shapes),
-             "msm": phase_msm(card, state)}
-    launches, shapes, _ = phase_main(dev, card, BLS)
-    phase_kernel_line(dev, paths, {"main_bls": (launches, shapes)}, errs)
+    phase_oracle(dev, BN158)
+    curve_paths = {}
+    for curve in ("BN254", BLS, BN158):
+        launches, shapes, state = phase_main(dev, card, curve)
+        label, sfx = LABEL[curve]
+        curve_paths[curve] = {label: (launches, shapes),
+                              "msm" + sfx: phase_msm(card, state)}
+    phase_kernel_line(dev, curve_paths, errs)
     check("jax" not in sys.modules and not any(
         m == "kzg_tpu" or m.startswith("kzg_tpu.") for m in sys.modules),
         "no JAX and nothing of the JAX package imported")

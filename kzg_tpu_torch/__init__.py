@@ -1,10 +1,10 @@
 """kzg_tpu_torch — the PyTorch/CUDA port of kzg_tpu.
 
-KZG polynomial commitments over BN254 and BLS12-381 on an NVIDIA H100:
-the protocol surface of ``kzg_tpu`` (init, blob, poly, commit, proof,
-trusted_setup) with hand-written CUDA kernels for the Montgomery multiply
-and the G1 and G2 complete add and doubling (kzg_tpu_torch/csrc/, built
-per limb count). It imports torch and numpy, never jax and nothing of
+KZG polynomial commitments over BN254, BLS12-381 and BN158 on an NVIDIA
+H100: the protocol surface of ``kzg_tpu`` (init, blob, poly, commit,
+proof, trusted_setup) with hand-written CUDA kernels for the Montgomery
+multiply, the G1 and G2 complete add and doubling and the merge MSM's
+combine (kzg_tpu_torch/csrc/, built per limb count: 17, 25 and 11). It imports torch and numpy, never jax and nothing of
 ``kzg_tpu``.
 
 Quick start::

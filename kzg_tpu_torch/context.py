@@ -7,7 +7,7 @@ from functools import lru_cache
 
 import torch
 
-from .curves.params import PORTED_CURVES, CurveParams, get_curve
+from .curves.params import CurveParams, get_curve
 from .fields.mont import Field
 from .fields.quadratic import Fp2
 from .groups.ec import Curve
@@ -45,10 +45,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 def get_context(name: str, device=None) -> CurveContext:
+    """The context of curve `name` (BN254, BLS12381 or BN158; another name
+    raises ValueError) on `device`."""
     cp = get_curve(name)
-    if cp.name not in PORTED_CURVES:
-        raise NotImplementedError(
-            f"{cp.name} is not ported yet (ported: {PORTED_CURVES})")
     return _context(cp.name, str(resolve_device(device)))
 
 

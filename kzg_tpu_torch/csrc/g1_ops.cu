@@ -1,6 +1,6 @@
 // K2: G1 complete point add (with an optional per-lane reset mask) and
-// K3: a chain of `times` G1 complete doublings, BN254 and BLS12-381 (a = 0;
-// built at L = 17 and 25 limbs, mont.cuh).
+// K3: a chain of `times` G1 complete doublings, BN254, BLS12-381 and BN158
+// (a = 0; built at L = 17, 25 and 11 limbs, mont.cuh).
 //
 // Replace the JAX package's composite Pallas kernels, each a whole group
 // operation traced into one VMEM-resident fuse_pointwise kernel
@@ -15,9 +15,10 @@
 //         msm's Horner tail.
 //
 // Bound on the card: an add reads 6 and writes 3 coordinates (9 x L int64
-// limbs, 1224 bytes per lane at 17 limbs, 1800 at 25) and does 12
-// Montgomery products plus 3 to re-reduce its outputs; a doubling does 9
-// (4, then 3, then 2 independent ones). The paths launch them narrow (32
+// limbs, 1224 bytes per lane at 17 limbs, 1800 at 25, 792 at 11) and does
+// 12 Montgomery products plus 3 to re-reduce its outputs; a doubling does 9
+// (4, then 3, then 2 independent ones). On BN158, whose 3b = 39 is a
+// product and not a lazy scale, an add does 14 and a doubling 10. The paths launch them narrow (32
 // lanes in setup's comb and the bucket scans' tails, a few hundred to a
 // few thousand per chunked bucket step, 1 lane x 8 in the merge msm's
 // Horner tail, 5000 x 8 for the shifted bases), where one lane's serial

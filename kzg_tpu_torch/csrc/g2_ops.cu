@@ -1,6 +1,7 @@
 // K4: G2 complete point add (with an optional per-lane reset mask) and
 // K5: a chain of `times` G2 complete doublings, BN254's and BLS12-381's
-// twists (a = 0, Fp2 with u^2 = -1; built at L = 17 and 25 limbs).
+// twists (a = 0, Fp2 with u^2 = -1) and BN158's (u^2 = 5); built at L = 17,
+// 25 and 11 limbs.
 //
 // Replace the G2 instances of the JAX package's composite Pallas kernels
 // (kzg_tpu/ops/fuse.py pl.pallas_call through fuse_composite /
@@ -15,7 +16,8 @@
 //         on the first verify, and by the merge msm's Horner tail.
 //
 // Bound on the card: an add reads 6 and writes 3 Fp2 coordinates (9 x 2 x
-// L int64 limbs, 2448 bytes per lane at 17 limbs, 3600 at 25) and does 48
+// L int64 limbs, 2448 bytes per lane at 17 limbs, 3600 at 25, 1584 at 11)
+// and does 48
 // base Montgomery products (14 Fp2 products of 3, 6 re-reductions); a
 // doubling does 27.
 // The paths launch them mostly narrow (1 lane in the Horner tail, 32 in

@@ -6,15 +6,16 @@
 // k * lanes + i, so neighbouring threads read neighbouring addresses.
 //
 // The limb count L is fixed at compile time by -DKZG_L (17 when unset):
-// 17 for BN254's Fp and Fr and BLS12-381's Fr, 25 for BLS12-381's Fp
-// (kzg_tpu_torch/ops/cuda.py builds each source once per limb count).
+// 17 for BN254's Fp and Fr and BLS12-381's Fr, 25 for BLS12-381's Fp, 11
+// for BN158's Fp and Fr (kzg_tpu_torch/ops/cuda.py builds each source once
+// per limb count). Nothing here depends on L beyond its use as a count.
 //
 // Value bounds (kzg_tpu_torch/fields/mont.py states them as measured):
 //   mont_mul inputs: limbs < 2^22, so each 64-bit column stays below
 //   2 L 2^44; the output is exact 16-bit limbs of (a b + m p) / R <
 //   a b / R + p: below 1.1 p for inputs below 64 p (R >= 2^16 p), below
-//   2 p while a b < R p (every product on BN254), and below 2.14 p on
-//   BLS12-381, whose G1 add gives one product a b = 1.14 R p.
+//   2 p while a b < R p (every product on BN254 and BN158), and below
+//   2.14 p on BLS12-381, whose G1 add gives one product a b = 1.14 R p.
 #pragma once
 
 #include <cstdint>

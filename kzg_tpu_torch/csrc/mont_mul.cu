@@ -1,6 +1,6 @@
 // K1: batched Montgomery multiply over a prime field of L limbs (L from
 // -DKZG_L: 17 for BN254's Fp and Fr and BLS12-381's Fr, whose constants
-// come from the host; 25 for BLS12-381's Fp).
+// come from the host; 25 for BLS12-381's Fp; 11 for BN158's Fp and Fr).
 //
 // Replaces T1, the one Pallas kernel on the JAX package's default path:
 // kzg_tpu/fields/mont.py Field.mul -> fuse_pointwise(Field._mul_impl)
@@ -10,7 +10,7 @@
 // columns plus L base-2^16 reduction rounds in registers (mont.cuh).
 //
 // Bound on the card: per lane it moves 3 x L int64 limbs (408 bytes at 17
-// limbs, 600 at 25) and does 2 L^2 + L 16-bit multiply-accumulates, so at
+// limbs, 600 at 25, 264 at 11) and does 2 L^2 + L 16-bit multiply-accumulates, so at
 // the int64 storage of the port's tensors it is bound by bytes, not by the
 // integer multiply rate. The design keeps every intermediate in registers
 // (nothing but the operands and the result touches memory) and reads

@@ -1,6 +1,7 @@
 // K6: the merge-strategy combine of the bucket accumulation, one launch per
 // merge level, for G1 and for G2 (one source, templated on the group's
-// base elements per point).
+// base elements per point; built at L = 17, 25 and 11 limbs: BN254,
+// BLS12-381 and BN158).
 //
 // Replaces T5, kzg_tpu/ops/msm.py:187-203 MSMEngine._bucket_sums_merge
 // `combine`, traced into one Pallas kernel per level by fuse_composite
@@ -16,7 +17,7 @@
 //
 // Bound on the card: a lane reads 4 points and 3 mask bytes and writes 3
 // points (7 x 3 coordinates) and does one complete add (15 base products
-// for G1, 48 for G2). A 4097-point MSM runs 13 levels, from 32 x 4096
+// for G1, 17 on BN158, 48 for G2). A 4097-point MSM runs 13 levels, from 32 x 4096
 // lanes down to 32 x 1. At the nine levels of at most 8192 lanes one
 // lane's serial chain of products sets the time; at the four widest the
 // product rate and the bytes do.

@@ -30,7 +30,8 @@
 // registers, and a product is the inlined mont_mul of mont.cuh (the form
 // K1 runs near its byte bound), so each kernel holds one unrolled L x L
 // product. Shared memory and the constant rows grow with L (25 / 17 of
-// BN254's at BLS12-381's 25 limbs); the table does not depend on L. After
+// BN254's at BLS12-381's 25 limbs, 11 / 17 at BN158's 11); the table does
+// not depend on L. After
 // each level the team meets at __syncwarp(team mask); a team never waits
 // on threads outside it, so a team past the batch's end or a warp's spare
 // threads may leave early.

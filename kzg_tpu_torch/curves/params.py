@@ -126,5 +126,3 @@ def get_curve(name: str) -> CurveParams:
 
 
 CURVE_NAMES = ("BN158", "BN254", "BLS12381")
-# Curves the port runs end to end; the others' constants are data only.
-PORTED_CURVES = ("BN254", "BLS12381")

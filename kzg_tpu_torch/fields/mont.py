@@ -26,7 +26,12 @@ Value-bound discipline (the JAX package's contract, and what holds):
     by tests/test_torch_g2_schedule.py, which holds the lane-team schedules
     to a b < 1.15 R p there, output < 2.15 p). Its callers take such an
     output as a lazy value; kernels and plain versions agree limb for
-    limb on it, and the add's outputs re-reduce below 1.1 p;
+    limb on it, and the add's outputs re-reduce below 1.1 p. On BN158
+    (L = 11, R > 466,000 p, lift m = 185) the G1 add's 3b = 39 is a full
+    product, so its widest inputs are ~186 p with a b < 0.08 R p, and
+    the G2 formulas over Fp2 with qnr = 5 (a lazy c0 = v0 + 5 v1) give
+    inputs up to ~66 p, past 64 p, with limbs below 2^22 and a b below
+    0.01 R p;
   * add is lazy (1 op), bounds add;  sub(a, b) requires value(b) <= k p and
     emits limbs <= 2^16 + 1 with value <= value(a) + m p (see _kp_lift).
 

@@ -23,10 +23,11 @@ block (_g1_consts, _g2_consts).
 
 The limb count L is a compile-time constant of the sources (``-DKZG_L``):
 each source compiles once per limb count it is asked for, 17 for BN254's
-Fp and Fr and BLS12-381's Fr, 25 for BLS12-381's Fp. A wrapper picks the
-library by its field's L; the kernels of a 17-limb field count their
-launches under their names (``mont_mul``), the others under name@L
-(``mont_mul@25``). K6 is built for 17 limbs only.
+Fp and Fr and BLS12-381's Fr, 25 for BLS12-381's Fp, 11 for BN158's Fp
+and Fr; every source is built at all three. A wrapper picks the library
+by its field's L; the kernels of a 17-limb field count their launches
+under their names (``mont_mul``), the others under name@L
+(``mont_mul@25``, ``merge_combine_g1@11``).
 
 Each source compiles at first use with nvcc into a shared library with a
 plain C interface under ``build/kzg_tpu_torch/`` at the root of the
@@ -72,9 +73,9 @@ SOURCES = {"mont_mul": "mont_mul.cu", "g1_ops": "g1_ops.cu",
            "g2_ops": "g2_ops.cu", "msm_merge": "msm_merge.cu"}
 HEADERS = ["mont.cuh", "team.cuh"]
 BASE_L = 17             # the limb count whose kernels keep their bare names
-# the sources built at each limb count: K1-K6 at 17 limbs; at 25 (BLS12-381
-# Fp) K1-K5, K6 being queued (ROADMAP)
-LIMB_SOURCES = {17: tuple(SOURCES), 25: ("mont_mul", "g1_ops", "g2_ops")}
+# the limb counts every source is built at: 17 (BN254, BLS12-381 Fr), 25
+# (BLS12-381 Fp) and 11 (BN158)
+LIMBS = (BASE_L, 25, 11)
 
 
 class Kernel:
@@ -130,8 +131,7 @@ def kernel_key(name, limbs):
 
 KERNELS.update({kernel_key(k.name, L): Kernel(k.name, k.lib, k.source,
                                                 k.replaces, L)
-                for L, srcs in LIMB_SOURCES.items() if L != BASE_L
-                for k in KERNELS.values() if k.lib in srcs})
+                for L in LIMBS if L != BASE_L for k in KERNELS.values()})
 
 
 def reset_counts():
@@ -176,13 +176,11 @@ def _so_path(name, limbs=BASE_L):
     return BUILD_DIR / f"lib{name}_L{limbs}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=None, limbs=(BASE_L,)):
-    """Compile the given sources (default: all that are built at that limb
-    count, LIMB_SOURCES) at each of the limb counts `limbs` that are not
-    built yet, one nvcc process each, all started together. Returns
-    {kernel_key(name, L): seconds}."""
-    jobs = [(name, L) for L in limbs
-            for name in (LIMB_SOURCES[L] if names is None else names)]
+def build(names=tuple(SOURCES), limbs=(BASE_L,)):
+    """Compile the given sources (default: all) at each of the limb counts
+    `limbs` that are not built yet, one nvcc process each, all started
+    together. Returns {kernel_key(name, L): seconds}."""
+    jobs = [(name, L) for L in limbs for name in names]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
@@ -297,15 +295,15 @@ def _mod_consts(F):
 
 def _g1_consts(G):
     """K1's constants, then the lane-team block of K2/K3/K6 (team.block).
-    The schedules follow Curve._add_plain / _dbl_plain on the branches
-    those take when 3b <= 14 (a lazy small multiple) and 9b > 15 (a full
-    product): BN254 (3b = 6) and BLS12-381 (3b = 12); other curves
-    raise."""
+    The schedules follow Curve._add_plain / _dbl_plain on either branch of
+    3b (a lazy small multiple when 3b <= 14: BN254's 6, BLS12-381's 12; a
+    full product above: BN158's 39) and on the branch of 9b > 15 (a full
+    product); a curve with 9b <= 15 raises."""
     F = G.F
     b3 = G._b3_int
-    if not (b3 <= 14 and 3 * b3 > 15):
-        raise ValueError(f"{G.name}: the G1 kernels take 3b <= 14 and "
-                         f"9b > 15, not 3b = {b3}")
+    if not 3 * b3 > 15:
+        raise ValueError(f"{G.name}: the G1 kernels take 9b > 15, not "
+                         f"3b = {b3}")
     return (list(F.params.limbs) + list(F.params.one_limbs) + [F.n0]
             + team.block(G))
 
@@ -313,11 +311,12 @@ def _g1_consts(G):
 def _g2_consts(G):
     """K1's constants of the base field, then the lane-team block of
     K4/K5/K6 (team.block). The schedules take Fp2 with qnr = -1 (BN254,
-    BLS12-381); other curves raise."""
+    BLS12-381) or qnr = 5 (BN158, c0 = v0 + 5 v1 lazy); other curves
+    raise."""
     F2 = G.F
     B = F2.base
-    if not F2.qnr_is_m1:
-        raise ValueError(f"{G.name}: the G2 kernels take qnr = -1")
+    if not (F2.qnr_is_m1 or F2.qnr_small == 5):
+        raise ValueError(f"{G.name}: the G2 kernels take qnr = -1 or 5")
     return (list(B.params.limbs) + list(B.params.one_limbs) + [B.n0]
             + team.block(G))
 
@@ -497,11 +496,6 @@ def merge_combine(G, aL, aR, bL, bR, fuse, asing, bsing):
     one lane stride (a merge level's stride-2 halves) are read in place."""
     name = "merge_combine_g2" if G.is_fp2 else "merge_combine_g1"
     lead = _lead(G)
-    if "msm_merge" not in LIMB_SOURCES.get(lead[-1], ()):
-        raise NotImplementedError(
-            f"{name}: K6 is built for {BASE_L} limbs only, not {lead[-1]} "
-            f"({G.name}); its {lead[-1]}-limb instance is queued in "
-            "ROADMAP.md section B")
     n = len(lead)
     coords = [P[k] for P in (aL, aR, bL, bR) for k in ("x", "y", "z")]
     batch = tuple(torch.broadcast_shapes(*[t.shape[n:] for t in coords]))
@@ -526,8 +520,8 @@ def merge_combine(G, aL, aR, bL, bR, fuse, asing, bsing):
             strides += [lane, 0, 0]
         ptrs = (ctypes.c_uint64 * 15)(*[t.data_ptr() for t in ops])
         st = (ctypes.c_int64 * 45)(*strides)
-        kern = KERNELS[name]
-        fn = getattr(_lib(kern.lib), "kzg_" + name)
+        kern = KERNELS[kernel_key(name, lead[-1])]
+        fn = getattr(_lib(kern.lib, lead[-1]), "kzg_" + name)
         _check(fn(ctypes.cast(ptrs, _VP), ctypes.cast(st, _VP),
                   out.data_ptr(), lanes, _consts(G), lead[-1], _stream()),
                name)

@@ -4,8 +4,8 @@ chain), K4/K5 (G2) and K6 (the merge combine of either group), as data.
 The kernels (csrc/team.cuh) give each lane of a point batch to a team of
 threads inside one warp. The point, the constants and every
 intermediate live in the block's shared memory as base-field *slots* (L
-uint32 limbs each: 17 on BN254, 25 on BLS12-381); the formula runs in
-*levels*. In a level every
+uint32 limbs each: 17 on BN254, 25 on BLS12-381, 11 on BN158); the
+formula runs in *levels*. In a level every
 instruction is independent of the others, team rank r executes
 instructions r, r + T, r + 2T, ... (T threads per team), and the team
 synchronises after it. An instruction is one of
@@ -14,14 +14,16 @@ synchronises after it. An instruction is one of
   LAZY   dst = sa * sum(a)                        (limbwise, no carries)
   EXACT  dst = sa * sum(a) + m p - sb * sum(b)    (exact 16-bit limbs)
 
-over up to four operand slots a and b each. Folding lazy sums and small
+over up to four operand slots a and b each (a wider lazy sum is first
+gathered into a slot by a LAZY). Folding lazy sums and small
 scales into operands keeps the values and limbs of the plain versions
 (Curve._add_plain and Curve._dbl_plain over Field.mul, add, sub and
 mul_small, or over Fp2's): a lazy add is a limbwise sum in either place.
 A subtraction becomes an EXACT with the plain version's own value: m p is
 Fp2.sub(k)'s exact k p for G2, and for G1 the multiple m p that the lazy
 Field.sub(k) adds (Field.lift_limbs(k): m = 180 for k = 16 and 194 for
-k = 32 on BN254, 247 and 266 on BLS12-381). Its limbs may differ from
+k = 32 on BN254, 247 and 266 on BLS12-381, 185 and 200 on BN158). Its
+limbs may differ from
 the lazy ones, but a Montgomery product depends only on its inputs'
 values, and nothing is reordered across a subtraction, so every product
 sees the values the plain version gives Field.mul, and every output
@@ -49,7 +51,7 @@ import torch
 MUL, LAZY, EXACT = 0, 1, 2
 CONST0 = 240                  # slot ids >= CONST0 are constant rows:
 ONE, C1, C2 = 240, 241, 242   # R mod p; G2 the twist's 3b' c0 and c1, G1
-#                               9b in Montgomery form (C1)
+#                               9b and 3b in Montgomery form
 ROWS = 8                      # constant rows: 3 slots, then 5 EXACT slacks
 ADD, RESET, DBL, FRESH = range(4)    # the schedules, in table order
 ADD_KERNEL = (ADD, RESET)            # K2/K4 run these (K6 ADD), K3/K5 DBL
@@ -74,15 +76,26 @@ class _Prog:
     (scale, nodes): the lazy value scale * sum(nodes). `kps`: the multiples
     of p that EXACT may add (the slack rows)."""
 
-    def __init__(self, n_in, kps):
+    def __init__(self, n_in, kps, qnr=-1):
         self.n_in = n_in
         self.kps = kps
+        self.qnr = qnr               # G2: Fp2's non-residue, -1 or small
         self.ins = []                # (kind, dst node, a sum, b sum, kp idx)
+        self._gathered = {}          # nodes -> the LAZY that summed them
+
+    def _narrow(self, x):
+        """An operand of at most four slots: the first four of a wider sum
+        gathered by one LAZY (made once per set of nodes)."""
+        scale, nodes = x
+        while len(nodes) > 4:
+            head = nodes[:4]
+            if head not in self._gathered:
+                self._gathered[head] = self._emit(LAZY, (1, head))
+            nodes = (self._gathered[head],) + nodes[4:]
+        return scale, nodes
 
     def _emit(self, kind, a, b=(1, ()), kp=0):
-        for s in (a, b):
-            if len(s[1]) > 4:
-                raise ValueError("an operand sums at most four slots")
+        a, b = self._narrow(a), self._narrow(b)
         node = CONST0 + 16 + len(self.ins)     # past every slot id
         self.ins.append((kind, node, a, b, kp))
         return node
@@ -118,10 +131,24 @@ def _scale(x, s):
 
 # ----------------------------------------------------------------------
 # G1 (Curve._add_plain / _dbl_plain over Field, a = 0): base elements x,
-# y, z; 3b a small scale and 9b a product by its Montgomery form, the
-# branches the plain version takes when 3b <= 14 and 9b > 15 (BN254: 3b =
-# 6, BLS12-381: 3b = 12; ops/cuda.py _g1_consts checks them)
+# y, z; 3b as Field.mul_const takes it, a small scale when 3b <= 14
+# (BN254: 3b = 6, BLS12-381: 12) and else a product by its Montgomery form
+# in row C2 (BN158: 39); 9b a product by row C1, the branch the plain
+# doubling takes when 9b > 15 (ops/cuda.py _g1_consts checks it)
 # ----------------------------------------------------------------------
+
+def _slot(pg, x):
+    """The node of a sum that is one slot as it is, else a LAZY of it."""
+    return x[1][0] if x[0] == 1 and len(x[1]) == 1 else pg.lazy(x)
+
+
+def _mul_b3(pg, x, b3):
+    """3b x as Curve._mul_b3 gives it: a lazy scale of the sum x, or a
+    product by row C2."""
+    if b3 <= 14:
+        return _scale(x, b3)
+    return _s(pg.mul(x, _s(C2)))
+
 
 def _g1_add(b3, m16, kps):
     """RCB15 Alg 7, then every output re-reduced."""
@@ -136,9 +163,10 @@ def _g1_add(b3, m16, kps):
     t3 = pg.exact(_s(tA), m16, _s(t0, t1))            # X1Y2 + X2Y1
     t4 = pg.exact(_s(tB), m16, _s(t1, t2))            # Y1Z2 + Y2Z1
     t5 = pg.exact(_s(tC), m16, _s(t0, t2))            # X1Z2 + X2Z1
-    Zt = _s(t1, pg.lazy(_s(t2, scale=b3)))            # Y1Y2 + 3bZ1Z2
-    M = _s(pg.exact(_s(t1), m16, _s(t2, scale=b3)))   # Y1Y2 - 3bZ1Z2
-    G = _s(t5, scale=b3)                              # 3b (X1Z2 + X2Z1)
+    Ft = _mul_b3(pg, _s(t2), b3)                      # 3b Z1Z2
+    Zt = _s(t1, _slot(pg, Ft))                        # Y1Y2 + 3bZ1Z2
+    M = _s(pg.exact(_s(t1), m16, Ft))                 # Y1Y2 - 3bZ1Z2
+    G = _mul_b3(pg, _s(t5), b3)                       # 3b (X1Z2 + X2Z1)
     t03 = _s(t0, scale=3)                             # 3 X1X2
     X3 = pg.exact(_s(pg.mul(_s(t3), M)), m16, _s(pg.mul(_s(t4), G)))
     Y3 = _s(pg.mul(M, Zt), pg.mul(t03, G))
@@ -162,8 +190,9 @@ def _g1_dbl(b3, m32, kps):
     t1 = pg.mul(_s(Y), _s(Z))
     zz = pg.mul(_s(Z), _s(Z))
     xy = pg.mul(_s(X), _s(Y))
-    Y3t = _s(t0, pg.lazy(_s(zz, scale=b3)))           # Y^2 + 3b Z^2
-    X3 = pg.mul(_s(zz, scale=b3), _s(t0, scale=8))    # 3b Z^2 8 Y^2
+    t2 = _mul_b3(pg, _s(zz), b3)                      # 3b Z^2
+    Y3t = _s(t0, _slot(pg, t2))                       # Y^2 + 3b Z^2
+    X3 = pg.mul(t2, _s(t0, scale=8))                  # 3b Z^2 8 Y^2
     Z3 = pg.mul(_s(t1), _s(t0, scale=8))
     t29 = pg.mul(_s(zz), _s(C1))                      # 9b Z^2
     t0 = pg.exact(_s(t0), m32, _s(t29))               # Y^2 - 9b Z^2
@@ -180,8 +209,9 @@ def _g1_fresh(kps):
 
 
 # ----------------------------------------------------------------------
-# G2 (the same formulas over Fp2 = Fp[u]/(u^2 + 1)): Fp2 values are pairs
-# of sums (c0, c1); base elements x.c0, x.c1, y.c0, y.c1, z.c0, z.c1
+# G2 (the same formulas over Fp2 = Fp[u]/(u^2 - qnr), qnr = -1 on BN254
+# and BLS12-381, 5 on BN158): Fp2 values are pairs of sums (c0, c1); base
+# elements x.c0, x.c1, y.c0, y.c1, z.c0, z.c1
 # ----------------------------------------------------------------------
 
 def _f2(c0, c1):
@@ -197,11 +227,16 @@ def _f2_small(A, s):
 
 
 def _f2_mul(pg, A, B):
-    """Fp2.mul: Karatsuba, c0 = v0 + 2p - v1, c1 = t + 4p - (v0 + v1)."""
+    """Fp2.mul: Karatsuba, c1 = t + 4p - (v0 + v1) exact; c0 = v0 + 2p - v1
+    exact for qnr = -1, else the lazy v0 + qnr v1."""
     v0 = pg.mul(A[0], B[0])
     v1 = pg.mul(A[1], B[1])
     t = pg.mul(_cat(A[0], A[1]), _cat(B[0], B[1]))
-    return _f2(pg.exact(_s(v0), 2, _s(v1)), pg.exact(_s(t), 4, _s(v0, v1)))
+    if pg.qnr == -1:
+        c0 = _s(pg.exact(_s(v0), 2, _s(v1)))
+    else:
+        c0 = _s(v0, pg.lazy(_s(v1, scale=pg.qnr)))
+    return c0, _s(pg.exact(_s(t), 4, _s(v0, v1)))
 
 
 def _f2_sub(pg, A, B, k):
@@ -215,10 +250,10 @@ def _f2_fresh(pg, A):
 B3 = _f2(C1, C2)
 
 
-def _g2_add():
+def _g2_add(qnr):
     """Curve._add_plain over Fp2 (RCB15 Alg 7, a = 0), then every output
     component re-reduced."""
-    pg = _Prog(12, KP2)
+    pg = _Prog(12, KP2, qnr)
     X1, Y1, Z1, X2, Y2, Z2 = [_f2(2 * i, 2 * i + 1) for i in range(6)]
     t0 = _f2_mul(pg, X1, X2)
     t1 = _f2_mul(pg, Y1, Y2)
@@ -250,10 +285,10 @@ def _g2_reset():
     return pg, range(6, 12), [pg.fresh(_s(e)) for e in range(6, 12)], {}
 
 
-def _g2_dbl():
+def _g2_dbl(qnr):
     """The Fp2 branch of Curve._dbl_plain (RCB15 Alg 9, a = 0): X3 = 2 Xa,
-    Y3 = Ya + X3', Z3 exact, left in the input slots."""
-    pg = _Prog(6, KP2)
+    Y3 = Ya + X3', Z3, left in the input slots."""
+    pg = _Prog(6, KP2, qnr)
     X, Y, Z = [_f2(2 * i, 2 * i + 1) for i in range(3)]
     t0 = _f2_mul(pg, Y, Y)
     t1 = _f2_mul(pg, Y, Z)
@@ -269,7 +304,7 @@ def _g2_dbl():
     Xa = _f2_mul(pg, t0, xy)
     Yn = _f2_add(Ya, X3)
     Xn = _f2_small(Xa, 2)
-    out = [pg.lazy(c) for c in Xn + Yn] + [Z3[0][1][0], Z3[1][1][0]]
+    out = [_slot(pg, c) for c in Xn + Yn + Z3]
     return pg, range(6), out, {n: i for i, n in enumerate(out)}
 
 
@@ -386,10 +421,11 @@ def _encode_sum(x, slot):
 
 
 def _key(G):
-    """What a group's table depends on: G2's is fixed; G1's takes 3b and
-    the lift multiples of the field's lazy subtractions."""
+    """What a group's table depends on: G2's takes Fp2's non-residue (-1 or
+    a small qnr); G1's takes 3b and the lift multiples of the field's lazy
+    subtractions."""
     if G.is_fp2:
-        return ("g2",)
+        return ("g2", -1 if G.F.qnr_is_m1 else G.F.qnr_small)
     F = G.F
     return ("g1", G._b3_int, F.lift_limbs(16)[1], F.lift_limbs(32)[1])
 
@@ -402,7 +438,7 @@ def _kps(key):
 def _table(key, layout):
     kps = _kps(key)
     if key[0] == "g2":
-        progs = (_g2_add(), _g2_reset(), _g2_dbl(), _g2_fresh())
+        progs = (_g2_add(key[1]), _g2_reset(), _g2_dbl(key[1]), _g2_fresh())
     else:
         _, b3, m16, m32 = key
         progs = (_g1_add(b3, m16, kps), _g1_reset(kps),
@@ -466,8 +502,8 @@ def _limbs(v, L):
 
 def rows(G):
     """The constant rows the instructions read, ROWS x L uint32 words:
-    slots ONE, C1, C2 (G2: R mod p, 3b' c0, 3b' c1; G1: R mod p, 9b in
-    Montgomery form, 0), then the exact 16-bit limbs of m p for each EXACT
+    slots ONE, C1, C2 (G2: R mod p, 3b' c0, 3b' c1; G1: R mod p, 9b and 3b
+    in Montgomery form), then the exact 16-bit limbs of m p for each EXACT
     slack index (zero rows past the group's)."""
     B = G.F.base if G.is_fp2 else G.F
     L, p = B.L, B.modulus
@@ -476,8 +512,8 @@ def rows(G):
         b3 = G._b3.cpu().tolist()                # (2, L) Montgomery limbs
         cst = [one, b3[0], b3[1]]
     else:
-        m9 = 3 * G._b3_int * B.params.mont_r % p
-        cst = [one, _limbs(m9, L), [0] * L]
+        m3 = G._b3_int * B.params.mont_r % p
+        cst = [one, _limbs(3 * m3 % p, L), _limbs(m3, L)]
     slack = [_limbs(m * p, L) for m in _kps(_key(G))]
     slack += [[0] * L] * (ROWS - 3 - len(slack))
     return [int(v) for r in cst + slack for v in r]

@@ -155,12 +155,16 @@ def test_ntt_matches_kzg_tpu_and_a_dft():
 
 def test_init_device_rules():
     """init("BLS12381") runs on the CPU when asked and on the card by
-    default, raising without one; BN158 is not ported yet."""
+    default, raising without one; BN158 initialises with its 11-limb
+    fields, and an unknown curve raises ValueError."""
     pc = kzg.init(CURVE, device="cpu")
     assert pc.ctx.fp.L == 25 and pc.ctx.fr.L == 17
     assert kzg.CURVE_ORDER_BYTES == 32 and kzg.MAX_CHUNK_BYTES == 31
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             kzg.init(CURVE)
-    with pytest.raises(NotImplementedError):
-        kzg.init("BN158", device="cpu")
+    pc = kzg.init("BN158", device="cpu")
+    assert pc.ctx.fp.L == pc.ctx.fr.L == 11
+    with pytest.raises(ValueError):
+        kzg.init("BLS12-377", device="cpu")
+    kzg.init(CURVE, device="cpu")

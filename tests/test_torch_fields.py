@@ -35,8 +35,10 @@ N = 24
 def _fields(which):
     """The port's and kzg_tpu's field, and kzg_tpu's jitted functions (one
     jit per function, so that each compiles once per shape). `which`: fp
-    or fr of BN254, bls-fp for BLS12-381's Fp (25 limbs)."""
-    curve = "BLS12381" if which.startswith("bls-") else "BN254"
+    or fr of BN254, bls-fp for BLS12-381's Fp (25 limbs), bn158-fp for
+    BN158's Fp (11 limbs)."""
+    curve = {"bls": "BLS12381", "bn158": "BN158"}.get(which.split("-")[0],
+                                                      "BN254")
     cp, jcp = get_curve(curve), jax_curve(curve)
     fp = cp.fp if which.endswith("fp") else cp.fr
     jfp = jcp.fp if which.endswith("fp") else jcp.fr
@@ -76,12 +78,13 @@ def _canon_j(jit, x):
     return np.asarray(jit["canon"](x))
 
 
-@pytest.mark.parametrize("which", ["fp", "fr", "bls-fp"])
+@pytest.mark.parametrize("which", ["fp", "fr", "bls-fp", "bn158-fp"])
 def test_mul_matches_jax_at_lazy_edges(which):
     """mul on inputs at the lazy contract's edges (value < 64 p, limbs up
     to 2^22 - 1) equals kzg_tpu's, equals a*b*R^-1 mod p, and returns
     exact 16-bit limbs with value < 1.1 p. mul_many equals the single muls.
-    bls-fp: the same on BLS12-381's Fp, 25 limbs (K1's 25-limb build)."""
+    bls-fp: the same on BLS12-381's Fp, 25 limbs (K1's 25-limb build);
+    bn158-fp on BN158's Fp, 11 limbs (K1's 11-limb build)."""
     F, _, jit = _fields(which)
     p, L = F.modulus, F.L
     rng = np.random.default_rng(SEED)
@@ -188,6 +191,32 @@ def test_fp2_mul_inv_match_jax():
     assert np.array_equal(canon2(inv), jcanon2(jax.jit(jF2.inv)(ja)))
     assert F2.decode(inv) == [(0, 0) if x == (0, 0) else tw.e2_inv(x)
                               for x in av]
+
+
+def test_fp2_qnr5_mul_inv_match_the_tower():
+    """BN158's Fp2 (u^2 = 5: c0 = v0 + 5 v1 lazy, where qnr = -1 subtracts;
+    the norm a0^2 - 5 a1^2) against the python-int tower of the oracle:
+    mul, sqr, inv and batch_inv, with components at 0, 1 and p - 1."""
+    cp = get_curve("BN158")
+    F2 = Fp2(Field(cp.fp, "cpu"), cp.qnr)
+    assert F2.qnr_small == 5 and not F2.qnr_is_m1
+    tw = Tower(cp)
+    p = cp.p
+    rng = np.random.default_rng(SEED + 4)
+
+    def rnd():
+        return int.from_bytes(rng.bytes(32), "little") % p
+
+    av = [(rnd(), rnd()) for _ in range(12)]
+    bv = [(rnd(), rnd()) for _ in range(12)]
+    av[0], bv[1], av[2], bv[3] = (0, 0), (1, 0), (0, p - 1), (p - 1, p - 1)
+    a, b = F2.encode(av), F2.encode(bv)
+    assert F2.decode(F2.mul(a, b)) == [tw.e2_mul(x, y)
+                                       for x, y in zip(av, bv)]
+    assert F2.decode(F2.sqr(b)) == [tw.e2_sqr(y) for y in bv]
+    want = [(0, 0) if x == (0, 0) else tw.e2_inv(x) for x in av]
+    assert F2.decode(F2.inv(a)) == want
+    assert F2.decode(F2.batch_inv(a)) == want
 
 
 def test_mul_wrapper_raises_off_the_card():

@@ -14,8 +14,12 @@ p), so there no product input may be larger, in value or limbs, than the
 largest the plain version gives Field.mul, and every product a b must stay
 below R p (output < 2 p). The BLS12-381 cases run the same schedules at 25
 limbs (BLS12-381's Fp) with the same checks, except the G1 add's product
-bound, which is larger there (test_add_schedule_matches_plain). No JAX
-call: test_torch_groups.py ties the plain versions to kzg_tpu.
+bound, which is larger there (test_add_schedule_matches_plain). The BN158
+cases run them at 11 limbs on the other branches: G1's 3b = 39 is a
+product, and G2's Fp2 has qnr = 5, whose lazy c0 = v0 + 5 v1 takes its
+products past 64 p; there both groups are held to the plain version's own
+product inputs and to a b < R p (BN158_AB below). No JAX call:
+test_torch_groups.py ties the plain versions to kzg_tpu.
 """
 
 import functools
@@ -68,11 +72,9 @@ def _check_contract(stats, p, p_ratio=64, limb=1 << 22):
 
 
 def _plain_stats(J, fn, monkeypatch):
-    """Run the plain version fn(); for G1, record the bounds of every input
-    that it gives the base field's product (team.bound_stats)."""
-    if J.is_fp2:
-        return fn(), None
-    F = J.F
+    """Run the plain version fn(); record the bounds of every input that it
+    gives the base field's product (team.bound_stats)."""
+    F = J.F.base if J.is_fp2 else J.F
     stats = {}
     mul = F._mul_plain
 
@@ -87,11 +89,11 @@ def _plain_stats(J, fn, monkeypatch):
 
 
 def _check_bounds(grp, J, stats, plain, ab_limit=1):
-    """G2: the mul contract. G1: no product input above the plain
-    version's own, in value or limbs, and a b < ab_limit R p for every
-    product."""
+    """G2 with qnr = -1: the mul contract. G1, and G2 with qnr = 5: no
+    product input above the plain version's own, in value or limbs, and a b
+    < ab_limit R p for every product."""
     B = J.F.base if J.is_fp2 else J.F
-    if grp == "g2":
+    if grp == "g2" and J.F.qnr_is_m1:
         _check_contract(stats, B.modulus)
         return
     assert 0 < stats["value"] <= plain["value"]
@@ -128,6 +130,17 @@ def _packed_pair(J, A, B):
 # below R p; the G1 doubling and G2 keep the BN254 bounds.
 BLS_G1_ADD_AB = Fraction(115, 100)
 
+# BN158 (11 limbs, R = 2^176 > 466,000 p): the G1 add's lazy sub(k = 16)
+# adds 185 p, but its G = 3b t5 is a product (3b = 39 > 14), so the widest
+# product is t3 M, both below ~187 p: a b < 35,000 p^2 < 0.08 R p (measured
+# 185.4 p, a b = 0.074 R p). The G1 doubling's sub(k = 32) adds 200 p to a
+# fresh value (200.7 p). G2 (qnr = 5): a product's c0 = v0 + 5 v1 is lazy,
+# < 6.1 p with limbs up to 6 x 65535, and its exact subtractions add 16 p
+# or 32 p; the widest inputs are Karatsuba sums of such values times small
+# scales (8 Y^2 in the doubling: measured 65.5 p, past the 64 p contract,
+# limbs up to 3,270,656 < 2^22; the add 32.7 p). Every BN158 product is held
+# to the plain version's own inputs and to a b < 0.1 R p.
+BN158_AB = Fraction(1, 10)
 
 @pytest.mark.parametrize("grp,with_reset,curve", [
     pytest.param("g2", False, "BN254", id="False"),
@@ -135,7 +148,9 @@ BLS_G1_ADD_AB = Fraction(115, 100)
     pytest.param("g1", False, "BN254", id="g1-False"),
     pytest.param("g1", True, "BN254", id="g1-True"),
     pytest.param("g2", True, "BLS12381", id="bls-True"),
-    pytest.param("g1", True, "BLS12381", id="bls-g1-True")])
+    pytest.param("g1", True, "BLS12381", id="bls-g1-True"),
+    pytest.param("g2", True, "BN158", id="bn158-True"),
+    pytest.param("g1", True, "BN158", id="bn158-g1-True")])
 def test_add_schedule_matches_plain(grp, with_reset, curve, monkeypatch):
     """On BLS12-381 the G1 add's products are held to a b < 1.15 R p
     (BLS_G1_ADD_AB: the output bound 2.15 p derived above), and the
@@ -161,7 +176,8 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, monkeypatch):
         assert plain["ab"] > R * J.F.modulus
         assert stats["value"] > 2900 * J.F.modulus
     else:
-        _check_bounds(grp, J, stats, plain)
+        _check_bounds(grp, J, stats, plain,
+                      BN158_AB if curve == "BN158" else 1)
 
 
 @pytest.mark.parametrize("grp,times,curve", [
@@ -170,7 +186,9 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, monkeypatch):
     pytest.param("g1", 1, "BN254", id="g1-1"),
     pytest.param("g1", 3, "BN254", id="g1-3"),
     pytest.param("g2", 3, "BLS12381", id="bls-3"),
-    pytest.param("g1", 3, "BLS12381", id="bls-g1-3")])
+    pytest.param("g1", 3, "BLS12381", id="bls-g1-3"),
+    pytest.param("g2", 3, "BN158", id="bn158-3"),
+    pytest.param("g1", 3, "BN158", id="bn158-g1-3")])
 def test_dbl_schedule_matches_plain(grp, times, curve, monkeypatch):
     J, og, P, _, pts, _ = _batch(grp, curve)
     stats = {}
@@ -187,7 +205,7 @@ def test_dbl_schedule_matches_plain(grp, times, curve, monkeypatch):
     assert torch.equal(packed, ref)
     assert J.unpack_affine(packed) == [og.mul(1 << times, a) for a in pts]
     _fresh(J, got)
-    _check_bounds(grp, J, stats, plain)
+    _check_bounds(grp, J, stats, plain, BN158_AB if curve == "BN158" else 1)
 
 
 def _fits(w):
@@ -237,20 +255,20 @@ def test_g1_table_fits_the_kernel():
     assert val[1] == 3 * J._b3_int * F.params.mont_r % F.modulus
 
 
-def test_tables_fit_the_kernel_at_25_limbs():
-    """BLS12-381 (Fp of 25 limbs): both groups' tables fit the kernels'
-    image with BN254's rounds (the table does not depend on L), the constant
-    rows are ROWS x 25 words with G1's slacks the lifts' m p (m = 247 and
-    266), and each kernel kind's shared memory per block (team.cuh
+def _fit_at(curve, L, rounds, lifts):
+    """Both groups' tables of `curve` fit the kernels' image with the
+    given product rounds (G1, G2), the constant rows are ROWS x L words
+    with G1's slacks the lifts' m p, 9b and 3b in Montgomery form in rows
+    C1 and C2, and each kernel kind's shared memory per block (team.cuh
     team_prepare: 8 L constant words, then slots x L x lanes per block)
     stays within what one block may hold (232,448 bytes)."""
-    ctx = get_context("BLS12381", "cpu")
+    ctx = get_context(curve, "cpu")
     F = ctx.fp
-    assert F.L == 25
-    for J, rounds in ((ctx.g1, [3, 1, 3, 1]), (ctx.g2, [7, 1, 4, 1])):
+    assert F.L == L
+    for J, want in zip((ctx.g1, ctx.g2), rounds):
         w = team.table(J)
         _fits(w)
-        assert team.rounds(w) == rounds
+        assert team.rounds(w) == want
         rows = team.rows(J)
         assert len(rows) == team.ROWS * F.L
         for k in range(team.KINDS):
@@ -261,6 +279,51 @@ def test_tables_fit_the_kernel_at_25_limbs():
     val = [sum(v << (16 * i) for i, v in enumerate(rows[r * F.L:
                                                         (r + 1) * F.L]))
            for r in range(team.ROWS)]
-    assert [F.lift_limbs(k)[1] for k in (16, 32)] == [247, 266]
-    assert val[3:6] == [0, 247 * F.modulus, 266 * F.modulus]
-    assert val[1] == 3 * ctx.g1._b3_int * F.params.mont_r % F.modulus
+    assert [F.lift_limbs(k)[1] for k in (16, 32)] == lifts
+    assert val[3:6] == [0] + [m * F.modulus for m in lifts]
+    b3 = ctx.g1._b3_int
+    assert val[1:3] == [3 * b3 * F.params.mont_r % F.modulus,
+                        b3 * F.params.mont_r % F.modulus]
+    return ctx
+
+
+def test_tables_fit_the_kernel_at_25_limbs():
+    """BLS12-381 (Fp of 25 limbs): both groups' tables fit the kernels'
+    image with BN254's rounds (the table does not depend on L), with G1's
+    slacks the lifts' m p (m = 247 and 266)."""
+    _fit_at("BLS12381", 25, ([3, 1, 3, 1], [7, 1, 4, 1]), [247, 266])
+
+
+def test_tables_fit_the_kernel_at_11_limbs():
+    """BN158 (Fp of 11 limbs) on its own branches: G1's 3b = 39 is a
+    product by row C2, so an add has 6 | 2 | 6 products (4 rounds at 6
+    threads per team, 14 products against BN254's 12) and a doubling 10
+    (4 rounds at 3: zz feeds the products by 3b and by 9b); G2's qnr = 5
+    gives a table of its own (the cache key carries qnr) with BN254's
+    rounds and more slots; G1's slacks m p with m = 185 and 200."""
+    ctx = _fit_at("BN158", 11, ([4, 1, 4, 1], [7, 1, 4, 1]), [185, 200])
+    bn = get_context("BN254", "cpu")
+    assert team.table(ctx.g2) != team.table(bn.g2)
+    assert team._key(ctx.g2) == ("g2", 5) and team._key(bn.g2) == ("g2", -1)
+
+
+def test_kernel_constants_refuse_unencoded_branches():
+    """The point kernels' constants (ops/cuda.py _g1_consts, _g2_consts)
+    are built for the branches the schedules encode, G1 with 9b > 15 (3b a
+    scale up to 14 or a product) and G2 with qnr = -1 or 5 (all three
+    curves), and refused for any other: a G1 with 3b = 3 (9b = 9 lazy in
+    the plain doubling) and an Fp2 with qnr = 3."""
+    from kzg_tpu_torch.fields.quadratic import Fp2
+    from kzg_tpu_torch.groups.ec import Curve
+    from kzg_tpu_torch.ops import cuda
+    for curve in ("BN254", "BLS12381", "BN158"):
+        ctx = get_context(curve, "cpu")
+        for J, consts in ((ctx.g1, cuda._g1_consts),
+                          (ctx.g2, cuda._g2_consts)):
+            B = J.F.base if J.is_fp2 else J.F
+            assert consts(J)[2 * B.L + 1:] == team.block(J)
+    ctx = get_context("BN158", "cpu")
+    with pytest.raises(ValueError, match="9b > 15"):
+        cuda._g1_consts(Curve(ctx.fp, 3, name="b1"))
+    with pytest.raises(ValueError, match="qnr"):
+        cuda._g2_consts(Curve(Fp2(ctx.fp, 3), (156, 39), name="qnr3"))

@@ -7,14 +7,18 @@ interpreter team.run and must equal MSMEngine._combine_plain (the plain
 version of K6, itself held to kzg_tpu in test_torch_groups.py) on seeded
 points (numpy seed) at an odd width, with every pattern of the three
 masks: mid, newL and newR as canonical affine points and against the
-python-int oracle, kept lanes' limbs unchanged, mid re-reduced.
+python-int oracle, kept lanes' limbs unchanged, mid re-reduced; on BN254
+(17 limbs), BLS12-381 (25) and BN158 (11, whose schedules take 3b as a
+product and qnr = 5).
 
 The wrapper cuda.merge_combine reads a merge level's stride-2 halves in
 place: given through a fake kernel library that reads the operands back
 from the raw pointers and strides it receives and runs team.plain_merge
 with the team block behind the constants, the halves of a level's sums
 must give the limbs that contiguous copies of them give, with the halves'
-own storage as the pointers.
+own storage as the pointers. It picks the library built for the curve's
+limb count and counts the launch under that instance
+(merge_combine_g1@25 and the like).
 """
 
 import ctypes
@@ -36,11 +40,11 @@ N = 9                                  # odd: lane i has mask pattern i % 8
 
 
 @functools.lru_cache(maxsize=None)
-def _batch(grp):
+def _batch(grp, curve="BN254"):
     """aL, aR, bL, bR over N lanes (aR + bL doubles in lane 0, cancels in
     lane 1, lanes 2-4 hold infinity), rescaled projectively, with their
     oracle points, and the masks fuse, asing, bsing (bits of i % 8)."""
-    ctx = get_context("BN254", "cpu")
+    ctx = get_context(curve, "cpu")
     J, og = (ctx.g2, G2(ctx.cp)) if grp == "g2" else (ctx.g1, G1(ctx.cp))
     rng = np.random.default_rng(SEED)
     pool = [og.mul(int(k), og.gen) for k in rng.integers(1, 1 << 20, 6)]
@@ -54,7 +58,8 @@ def _batch(grp):
     p = ctx.cp.p
 
     def rand():
-        return int.from_bytes(rng.bytes(40), "little") % p
+        return int.from_bytes(rng.bytes(40 if p.bit_length() < 300 else 56),
+                              "little") % p
 
     def rescaled(pp):
         P = J.encode_points(pp)
@@ -86,9 +91,17 @@ def _fresh(J, P):
         assert max(vals) < B.modulus * 11 // 10
 
 
-@pytest.mark.parametrize("grp", ["g1", "g2"])
-def test_merge_program_matches_combine_plain(grp):
-    J, og, eng, (aL, aR, bL, bR), pts, masks = _batch(grp)
+CURVE_CASES = [
+    pytest.param("g1", "BN254", id="g1"), pytest.param("g2", "BN254", id="g2"),
+    pytest.param("g1", "BLS12381", id="bls-g1"),
+    pytest.param("g2", "BLS12381", id="bls-g2"),
+    pytest.param("g1", "BN158", id="bn158-g1"),
+    pytest.param("g2", "BN158", id="bn158-g2")]
+
+
+@pytest.mark.parametrize("grp,curve", CURVE_CASES)
+def test_merge_program_matches_combine_plain(grp, curve):
+    J, og, eng, (aL, aR, bL, bR), pts, masks = _batch(grp, curve)
     got = team.plain_merge(J, aL, aR, bL, bR, *masks)
     want = eng._combine_plain(aL, aR, bL, bR, *masks)
     packed = _packed(J, list(got) + list(want))
@@ -162,11 +175,17 @@ class _FakeMerge:
 
 def _fake_lib(J, grp, monkeypatch):
     """cuda.merge_combine's library, stream and operand check replaced so
-    that it runs on CPU tensors through a _FakeMerge, which is returned."""
+    that it runs on CPU tensors through a _FakeMerge, which is returned;
+    its `libs` lists the (source, limb count) of each library asked for."""
     fake = _FakeMerge(J)
+    fake.libs = []
     name = "kzg_merge_combine_" + grp
-    monkeypatch.setattr(cuda, "_lib", lambda lib: type("Lib", (), {
-        name: staticmethod(fake)}))
+
+    def lib(source, limbs=cuda.BASE_L):
+        fake.libs.append((source, limbs))
+        return type("Lib", (), {name: staticmethod(fake)})
+
+    monkeypatch.setattr(cuda, "_lib", lib)
     monkeypatch.setattr(cuda, "_stream", lambda: None)
     monkeypatch.setattr(cuda, "_require", lambda *a, **k: None)
     return fake
@@ -178,13 +197,15 @@ def _flat(J, P):
     return {k: v.reshape(v.shape[:n] + (-1,)) for k, v in P.items()}
 
 
-@pytest.mark.parametrize("grp", ["g1", "g2"])
-def test_merge_wrapper_reads_strided_halves_in_place(grp, monkeypatch):
+@pytest.mark.parametrize("grp,curve", CURVE_CASES)
+def test_merge_wrapper_reads_strided_halves_in_place(grp, curve,
+                                                     monkeypatch):
     """A level's sums over (W = 3, m = 6): aL, bL are the even and odd
     lanes of sumL, aR, bR of sumR (uniform lane stride 2, base offset 0 or
     1); the wrapper passes their own storage and strides, and the result
-    equals that of contiguous copies and of MSMEngine._combine_plain."""
-    J, og, eng, (aL, aR, bL, bR), pts, masks = _batch(grp)
+    equals that of contiguous copies and of MSMEngine._combine_plain; at
+    17, 25 and 11 limbs."""
+    J, og, eng, (aL, aR, bL, bR), pts, masks = _batch(grp, curve)
     fake = _fake_lib(J, grp, monkeypatch)
     n = 2 if J.is_fp2 else 1
 
@@ -221,16 +242,20 @@ def test_merge_wrapper_reads_strided_halves_in_place(grp, monkeypatch):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("grp", ["g1", "g2"])
-def test_merge_wrapper_copies_what_it_cannot_read_in_place(grp, monkeypatch):
+@pytest.mark.parametrize("grp,curve", [
+    pytest.param("g1", "BN254", id="g1"), pytest.param("g2", "BN254", id="g2"),
+    pytest.param("g1", "BN158", id="bn158-g1"),
+    pytest.param("g2", "BN158", id="bn158-g2")])
+def test_merge_wrapper_copies_what_it_cannot_read_in_place(grp, curve,
+                                                           monkeypatch):
     """Over a (3, 3) batch: aL and the fuse mask as transposed views (batch
     axes that flatten to no one lane stride) and bR as one point per row
     broadcast along the row go to the kernel as contiguous copies with
     lane stride 1, while aR, bL and the other masks are read in place; the
     result equals that of contiguous operands and of
     MSMEngine._combine_plain on the same lanes, and a mask that is not
-    bool is refused."""
-    J, og, eng, (aL, aR, bL, bR), pts, masks = _batch(grp)
+    bool is refused; at 17 and 11 limbs."""
+    J, og, eng, (aL, aR, bL, bR), pts, masks = _batch(grp, curve)
     fake = _fake_lib(J, grp, monkeypatch)
     n = 2 if J.is_fp2 else 1
     grid = {k: v.reshape(v.shape[:n] + (3, 3)) for k, v in aL.items()}
@@ -266,3 +291,27 @@ def test_merge_wrapper_copies_what_it_cannot_read_in_place(grp, monkeypatch):
     with pytest.raises(TypeError, match="bool"):
         cuda.merge_combine(J, aLt, aRg, bLg, bRb, fuse_t.to(torch.uint8),
                            asing, bsing)
+
+
+def test_merge_wrapper_picks_the_library_by_limbs(monkeypatch):
+    """On BLS12-381 (Fp of 25 limbs) and BN158 (11) the wrapper asks for
+    msm_merge built at the field's limb count, counts the launch under
+    merge_combine_g1@25 (and the like) and no other instance, and gives
+    MSMEngine._combine_plain's points."""
+    for curve, L in (("BLS12381", 25), ("BN158", 11)):
+        for grp in ("g1", "g2"):
+            J, og, eng, ops, pts, masks = _batch(grp, curve)
+            fake = _fake_lib(J, grp, monkeypatch)
+            before = cuda.counts()
+            got = cuda.merge_combine(J, *ops, *masks)
+            after = cuda.counts()
+            assert fake.libs == [("msm_merge", L)]
+            key = cuda.kernel_key(f"merge_combine_{grp}", L)
+            assert key == f"merge_combine_{grp}@{L}"
+            assert {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]} == {key: 1}
+            assert cuda.KERNELS[key].limbs == L
+            want = eng._combine_plain(*ops, *masks)
+            packed = _packed(J, list(got) + list(want))
+            for a, b in zip(packed[:3], packed[3:]):
+                assert torch.equal(a, b)

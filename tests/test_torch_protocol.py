@@ -171,16 +171,20 @@ def test_error_semantics(golden):
 
 def test_init_device_rules():
     """init() runs on the card unless the caller asks for the CPU: without a
-    card it raises instead of falling back; unported curves raise."""
+    card it raises instead of falling back; BN158 initialises with its
+    11-limb fields, and an unknown curve raises ValueError."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             kzg.init("BN254")
         with pytest.raises(RuntimeError, match="CUDA"):
             get_context("BN254")
-    with pytest.raises(NotImplementedError):
-        kzg.init("BN158", device="cpu")
+    pc = kzg.init("BN158", device="cpu")
+    assert pc.ctx.fp.L == pc.ctx.fr.L == 11
+    with pytest.raises(ValueError):
+        kzg.init("BN256", device="cpu")
     with pytest.raises(ValueError):
         kzg.init("BN254", device="meta")
+    kzg.init("BN254", device="cpu")
 
 
 def test_constants_equal_kzg_tpu():
