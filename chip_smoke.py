@@ -12,10 +12,15 @@ mismatch or exception exits non-zero before the result line):
                ptxas register, stack and spill lines and the card's name and
                power limit;
   2. kernels — K1 (Montgomery multiply) at 4096, 131072 and 811008 lanes on
-               Fp and Fr with lazy input limbs; K2/K4 (G1/G2 complete add,
-               with and without reset mask) and K3/K5 (G1/G2 doubling chain,
-               times 1 and 8) over 8200 lanes with infinity, doubling and
-               negation cases, K2-K5 again at the ragged widths of their
+               Fp and Fr with lazy input limbs, and both of its variants
+               (lane teams, a thread per lane) at the team's ragged
+               widths (1, T - 1, T + 1 lanes, one lane past a block), at
+               108, 216 and 4096 lanes, either side of the width rule
+               (K1_TEAM_BELOW - 1, K1_TEAM_BELOW) and at those three;
+               K2/K4 (G1/G2 complete add, with and without reset mask)
+               and K3/K5 (G1/G2 doubling chain, times 1 and 8) over 8200
+               lanes with infinity, doubling and negation cases, K2-K5
+               again at the ragged widths of their
                lane teams (1, 5, 31, 32, 33, 127, 8193 lanes); K6 (merge
                combine, G1 and G2) over 8200 lanes with random masks, from
                contiguous inputs and from the stride-2 halves of two
@@ -75,13 +80,17 @@ mismatch or exception exits non-zero before the result line):
                each kernel's launches on its curve's main and msm paths,
                its largest error against the plain version, its device time
                per launch, the plain version's time per call, and the bound
-               at that shape; before it the "sweep" line: K2-K6 of each
+               at that shape; before it the "sweep" line: K1-K6 of each
                limb count held against their plain versions and timed at
                every distinct shape their curve's paths launched, with each
                path's device time in the kernel (path_ms = sum of launches x
                ms) and above its bound (gap_ms = sum of launches x (ms -
-               bound)); K6 also timed from a merge level's stride-2 halves,
-               the wrapper's copies included (halves_ms, halves_path_ms).
+               bound)); K1 in both variants (team_ms, lane_ms, `ships`: the
+               one the width rule picks, which ms is) beside floor_ms, an
+               empty kernel's launch on the shipped variant's grid, and the
+               lane-team variant must have run on each main path; K6 also
+               timed from a merge level's stride-2 halves, the wrapper's
+               copies included (halves_ms, halves_path_ms).
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 
     python3 chip_smoke.py --main-only
@@ -381,6 +390,52 @@ def wide_operands(curve, F, lanes, rng):
     return torch.as_tensor(a).to(F.device), torch.as_tensor(b).to(F.device)
 
 
+def k1_widths(L):
+    """The widths at which both K1 variants are held at L limbs: the
+    team's ragged edges under the shipped layout (1, T - 1, T + 1 lanes,
+    one lane past a block), the pairing's 108 and 216, the NTT's 4096,
+    either side of the width rule and K1_LANES."""
+    from kzg_tpu_torch.ops import cuda, k1_team
+    T = k1_team.LAYOUT[L][0]
+    lpb = k1_team.lanes_per_block(cuda.k1_table(L))
+    below = cuda.K1_TEAM_BELOW[L]
+    return sorted({1, max(T - 1, 1), T + 1, lpb + 1, 108, 216, 4096,
+                   below - 1, below, *K1_LANES})
+
+
+def k1_variants(curve, F, gen, rng, errs, wide):
+    """K1's lane-team and thread-per-lane variants on field F of `curve`,
+    each exact against Field._mul_plain at k1_widths, on lazy inputs up to
+    2^22 limbs and, where `wide` (BLS12-381's and BN158's Fp), the last
+    min(64, n / 2) lanes of each width at the point formulas' widest
+    operands."""
+    from kzg_tpu_torch.ops import cuda
+    t0 = time.time()
+    name = k1_entry(curve, F)
+    widths = k1_widths(F.L)
+    n = max(widths)
+    a0, b0 = lazy_limbs(F, n, gen), lazy_limbs(F, n, gen)
+    if wide:
+        a0[:, -64:], b0[:, -64:] = wide_operands(curve, F, 64, rng)
+    for w in widths:
+        k = min(w // 2, 64) if wide else 0
+        sl = torch.cat([torch.arange(w - k), torch.arange(n - k, n)])
+        a = a0[:, sl.to(F.device)].contiguous()
+        b = b0[:, sl.to(F.device)].contiguous()
+        want = F._mul_plain(a, b)
+        for team in (True, False):
+            got = cuda.mont_mul(F, a, b, team=team)
+            err = (got - want).abs().max().item()
+            errs[name] = max(errs[name], err)
+            check(err == 0, f"K1 {name} team={team} lanes={w}: kernel != "
+                  f"plain (max {err})")
+            check(int(got.max()) <= 0xFFFF, "K1 output limbs above 16 bits")
+    line("kernels", t0, f"{curve} K1 {name}: the lane-team and the "
+         f"thread-per-lane variants == plain (bit-exact limbs) at {widths} "
+         "lanes" + (", up to 64 lanes a width at the widest operands"
+                    if wide else ""))
+
+
 # the least largest product input (in p) that the checked adds of 8200
 # lanes must reach on the add's schedule, per curve and group: the G1 adds'
 # lifts (lift_limbs(16): 180 p, 247 p, 185 p; BLS12-381's 12 t5 ~2976 p)
@@ -444,6 +499,9 @@ def phase_kernels(dev, errs, curve="BN254"):
          "lazy inputs up to 2^22 limbs"
          + ("" if curve == "BN254" else ", 64 lanes per width at the point "
             "formulas' widest operands (output < a b / R + p)"))
+    for F in (ctx.fp, ctx.fr):
+        k1_variants(curve, F, gen, rng, errs,
+                    wide=curve != "BN254" and F is ctx.fp)
 
     # K2 / K3 and K4 / K5 ------------------------------------------------
     lanes = K23_LANES
@@ -1091,6 +1149,63 @@ def sweep(paths, ctx, bases, bound, errs, gen):
     return res
 
 
+def k1_sweep(paths, F, bound, errs, name, gen):
+    """K1 on field F (entry `name`) at every width the paths launched it:
+    both variants held exactly against Field._mul_plain on lazy inputs and
+    timed (team_ms, lane_ms, each the median of three kernel_ms taken in
+    turns; ms and `ships` are the variant the width rule picks), floor_ms (an empty kernel on the shipped variant's grid, timed
+    the same way) and the bound (3 L int64 limbs moved, 2 L^2 + L
+    multiply-accumulates, per lane); per path path_ms, gap_ms, floor_ms
+    (launches x floor_ms), lane_path_ms (every launch on the thread-per-lane
+    variant) and each variant's launches."""
+    from kzg_tpu_torch.ops import cuda
+    L = F.L
+    key = cuda.kernel_key("mont_mul", L)
+    widths = sorted({w for _, shp in paths.values() for w in shp.get(key, {})})
+    n = max(widths)
+    a0, b0 = lazy_limbs(F, n, gen), lazy_limbs(F, n, gen)
+    rows = []
+    sums = {k: dict.fromkeys(paths, 0.0)
+            for k in ("path_ms", "floor_ms", "lane_path_ms")}
+    by_variant = {v: dict.fromkeys(paths, 0) for v in ("team", "lane")}
+    for w in widths:
+        a, b = a0[:, :w].contiguous(), b0[:, :w].contiguous()
+        want = F._mul_plain(a, b)
+        err = 0
+        for team in (True, False):
+            err = max(err, (cuda.mont_mul(F, a, b, team=team)
+                            - want).abs().max().item())
+            errs[name] = max(errs[name], err)
+            check(err == 0, f"{name} team={team} at {w}: kernel != plain "
+                  f"(max {err})")
+        # the two variants differ by a few percent at 11 limbs: the median
+        # of three timings each, taken in turns
+        runs = {True: [], False: []}
+        for _ in range(3):
+            for team in (True, False):
+                runs[team].append(kernel_ms(
+                    lambda: cuda.mont_mul(F, a, b, team=team)))
+        ms = {team: statistics.median(v) for team, v in runs.items()}
+        ships = cuda.k1_uses_team(L, w)
+        grid = cuda.k1_grid(L, w)
+        floor = kernel_ms(lambda: cuda.empty_launch(*grid))
+        by_path = {path: shp.get(key, {}).get(w, 0)
+                   for path, (_, shp) in paths.items()}
+        for path, k in by_path.items():
+            sums["path_ms"][path] += k * ms[ships]
+            sums["floor_ms"][path] += k * floor
+            sums["lane_path_ms"][path] += k * ms[False]
+            by_variant["team" if ships else "lane"][path] += k
+        bms, by = bound(3 * L * 8 * w, 2 * macs_per_mul(L) * w)
+        rows.append({"lanes": w, "launches_by_path": by_path,
+                     "ships": "team" if ships else "lane", "ms": ms[ships],
+                     "team_ms": ms[True], "lane_ms": ms[False],
+                     "floor_ms": floor, "bound_ms": bms, "bound_by": by,
+                     "max_abs_err": err})
+    return {"team_below": cuda.K1_TEAM_BELOW[L], "shapes": rows, **sums,
+            "gap_ms": gaps(rows, paths), "launches_by_variant": by_variant}
+
+
 def bound(nbytes, ops):
     """(bound_ms, what bounds it) of work moving `nbytes` and doing `ops`
     operations at the card's published peaks."""
@@ -1152,6 +1267,7 @@ def phase_kernel_line(dev, curve_paths, errs):
                     shapes[name][key] = shapes[name].get(key, 0) + n
 
         k1 = {cuda.kernel_key("mont_mul", F.L): F for F in (ctx.fr, ctx.fp)}
+        k1_swept = {}
         for key, F in k1.items():       # one entry per instance of K1
             lanes = heaviest(shapes[key])
             a, b = lazy_limbs(F, lanes, gen), lazy_limbs(F, lanes, gen)
@@ -1160,6 +1276,13 @@ def phase_kernel_line(dev, curve_paths, errs):
                   lambda F=F, a=a, b=b: F._mul_plain(a, b), F.canon,
                   3 * F.L * 8 * lanes, 2 * macs_per_mul(F.L) * lanes,
                   {"lanes": lanes})
+            k1_swept[k1_entry(curve, F)] = k1_sweep(
+                on, F, bound, errs, k1_entry(curve, F), gen)
+            for path in on:
+                if path.startswith("main"):
+                    check(k1_swept[k1_entry(curve, F)]["launches_by_variant"]
+                          ["team"][path] > 0, f"K1 {key}: the lane-team "
+                          f"variant not launched on the {path} path")
 
         bases = {}
         for grp, Gc, inputs in (("g1", G, g1_inputs), ("g2", G2, g2_inputs)):
@@ -1200,7 +1323,7 @@ def phase_kernel_line(dev, curve_paths, errs):
                   lambda: eng._combine_plain(aL, aR, bL, bR, *masks),
                   packed_all(Gc), *merge_work(L, comps, add_muls, lanes),
                   {"lanes": lanes})
-        return sweep(on, ctx, bases, bound, errs, gen)
+        return {**k1_swept, **sweep(on, ctx, bases, bound, errs, gen)}
 
     swept = {}
     for curve, on in curve_paths.items():

@@ -5,7 +5,10 @@ where the tiler traced a pointwise function into one VMEM-resident TPU
 kernel, each of its call sites is here a kernel written by hand for Hopper
 (sm_90a):
 
-  K1 ``mont_mul``         (csrc/mont_mul.cu)  — Montgomery multiply (T1);
+  K1 ``mont_mul``         (csrc/mont_mul.cu)  — Montgomery multiply (T1): a
+                                                thread per lane from
+                                                K1_TEAM_BELOW lanes up, lane
+                                                teams (ops/k1_team.py) below;
   K2 ``g1_add``           (csrc/g1_ops.cu)    — G1 complete add with reset
                                                 mask (T2, T4, T6, T7);
   K3 ``g1_dbl``           (csrc/g1_ops.cu)    — chain of G1 doublings (T3);
@@ -62,7 +65,7 @@ from pathlib import Path
 
 import torch
 
-from . import team
+from . import k1_team, team
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
@@ -76,6 +79,13 @@ BASE_L = 17             # the limb count whose kernels keep their bare names
 # the limb counts every source is built at: 17 (BN254, BLS12-381 Fr), 25
 # (BLS12-381 Fp) and 11 (BN158)
 LIMBS = (BASE_L, 25, 11)
+# K1 launches below this many lanes run the lane-team kernel (layout
+# k1_team.LAYOUT), wider ones a thread per lane; per limb count, the width
+# from which the thread-per-lane kernel is as fast (team_sweep.py k1 on
+# the H100, PERF.md run Z6: at 17 limbs the team takes 0.93 x its time at
+# 3072 lanes and 1.01 x at 3584; at 25, 0.94 x at 5120 and 1.05 x at 5632;
+# at 11, 0.96 x at 1536 and 1.00 x at 2048)
+K1_TEAM_BELOW = {BASE_L: 3072, 25: 5120, 11: 2048}
 
 
 class Kernel:
@@ -227,6 +237,8 @@ def build_log(name, limbs=BASE_L):
 _VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGTYPES = {
     "kzg_mont_mul": [_VP, _VP, _VP, _I64, _VP, _INT, _VP],
+    "kzg_mont_mul_team": [_VP, _VP, _VP, _I64, _VP, _INT, _VP, _VP],
+    "kzg_k1_empty": [_I64, _INT, _VP],
     "kzg_g1_add": [_VP] * 8 + [_I64, _VP, _INT, _VP],
     "kzg_g1_dbl": [_VP] * 4 + [_I64, _INT, _VP, _INT, _VP],
     "kzg_g2_add": [_VP] * 8 + [_I64, _VP, _INT, _VP],
@@ -293,6 +305,17 @@ def _mod_consts(F):
     return c
 
 
+_k1_tables = {}
+
+
+def k1_table(L):
+    """K1's team table at L limbs (k1_team.table at k1_team.LAYOUT), built
+    once; team_sweep.py replaces an entry to time another layout."""
+    if L not in _k1_tables:
+        _k1_tables[L] = _u32(k1_team.table(L))
+    return _k1_tables[L]
+
+
 def _g1_consts(G):
     """K1's constants, then the lane-team block of K2/K3/K6 (team.block).
     The schedules follow Curve._add_plain / _dbl_plain on either branch of
@@ -334,9 +357,18 @@ def _consts(G):
 # wrappers
 # ----------------------------------------------------------------------
 
-def mont_mul(F, a, b):
+def k1_uses_team(L, lanes, team=None):
+    """Whether K1 runs its lane-team kernel over `lanes` lanes at L limbs:
+    below K1_TEAM_BELOW[L], unless `team` (True or False) says which."""
+    return lanes < K1_TEAM_BELOW[L] if team is None else team
+
+
+def mont_mul(F, a, b, team=None):
     """K1: Montgomery product of two equally shaped (L, *batch) int64 limb
-    tensors on the card (a broadcast input is materialized first)."""
+    tensors on the card (a broadcast input is materialized first). The
+    lane-team kernel below K1_TEAM_BELOW[L] lanes, the thread-per-lane one
+    from there up; `team` True or False forces one (for timing both).
+    Either counts under K1's key at L."""
     if a.shape != b.shape:
         raise ValueError(f"mont_mul: shapes {tuple(a.shape)} != "
                          f"{tuple(b.shape)}")
@@ -350,11 +382,36 @@ def mont_mul(F, a, b):
     if lanes == 0:
         return out
     lib = _lib("mont_mul", F.L)
-    _check(lib.kzg_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            lanes, ctypes.cast(_mod_consts(F), _VP), F.L,
-                            _stream()), "mont_mul")
+    mod = ctypes.cast(_mod_consts(F), _VP)
+    if k1_uses_team(F.L, lanes, team):
+        rc = lib.kzg_mont_mul_team(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                   lanes, mod, F.L,
+                                   ctypes.cast(k1_table(F.L), _VP),
+                                   _stream())
+    else:
+        rc = lib.kzg_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              lanes, mod, F.L, _stream())
+    _check(rc, "mont_mul")
     KERNELS[kernel_key("mont_mul", F.L)].count(lanes)
     return out
+
+
+def k1_grid(L, lanes, team=None):
+    """(blocks, threads per block) of K1's launch over `lanes` lanes at L
+    limbs, in the variant the width rule (or `team`) picks."""
+    if k1_uses_team(L, lanes, team):
+        tab = k1_table(L)
+        lpb = k1_team.lanes_per_block(tab)
+        return -(-lanes // lpb), 32 * tab[1]
+    return -(-lanes // 128), 128
+
+
+def empty_launch(blocks, threads):
+    """An empty kernel over `blocks` blocks of `threads` threads (built
+    with K1's source): the device time of a launch that does no work.
+    Counted nowhere."""
+    _check(_lib("mont_mul").kzg_k1_empty(blocks, threads, _stream()),
+           "empty kernel")
 
 
 def _lead(G):

@@ -1,17 +1,27 @@
 #!/usr/bin/env python3
 """Layouts of the lane-team kernels on one GPU: K2 (g1_add) and K3 (g1_dbl)
-for G1, K4 (g2_add) and K5 (g2_dbl) for G2, or K6 (merge_combine_g1 /
-_g2, which runs in the add's layout). For each (threads per team, warps
-per block) the group's kernels run the team block built for that layout
+for G1, K4 (g2_add) and K5 (g2_dbl) for G2, K6 (merge_combine_g1 /
+_g2, which runs in the add's layout), or K1 (mont_mul's lane-team
+variant). For each (threads per team, warps per block) the group's
+kernels run the team block built for that layout
 (kzg_tpu_torch/ops/team.py), are held exactly against their plain
 versions and timed (device time per launch, chip_smoke.kernel_ms) at
 widths the main and msm paths launch (K6: the 13 levels of a 4097-point
-merge msm, 32 x 1 to 32 x 4096 lanes).
+merge msm, 32 x 1 to 32 x 4096 lanes). K1 runs the team table of each
+layout (kzg_tpu_torch/ops/k1_team.py) at 17, 25 and 11 limbs (BN254's,
+BLS12-381's and BN158's Fp, lazy limbs up to 2^22, the last 64 lanes at
+the point formulas' widest operands on BLS12-381 and BN158) at
+K1_WIDTHS, beside the thread-per-lane variant and an empty kernel on its
+grid (floor_ms) at the same widths, each exact against
+Field._mul_plain; it prints, per limb count, the layout of the least
+summed time below 16384 lanes and the widths at which the thread-per-lane
+variant is as fast.
 
-    python3 team_sweep.py [g1|g2|merge|merge-g2] [T,W ...]
+    python3 team_sweep.py [g1|g2|merge|merge-g2|k1] [T,W ...]
         (default: g1 with 3,2 4,2 4,4 6,2 6,4 8,2 16,2;
          g2 with 6,2 8,2 8,4 12,2 16,2; merge with 3,2 6,2 6,4;
-         merge-g2 with 8,2 8,4 16,2)
+         merge-g2 with 8,2 8,4 16,2; k1 with 4,4 8,1 8,2 8,4 16,2
+         16,4 32,1 32,2)
 
 Prints the card, the ptxas lines of the sources it builds and their nvcc
 times, then one JSON line per layout and the layouts the package ships
@@ -30,7 +40,14 @@ import chip_smoke as cs
 ADD_LANES = (1, 32, 512, 2048, 5000, 80000)
 DBL_SHAPES = ((1, 8), (32, 8), (5000, 8))
 MERGE_LANES = tuple(32 << j for j in range(13))
-DEFAULT = {"g1": [(3, 2), (4, 2), (4, 4), (6, 2), (6, 4), (8, 2), (16, 2)],
+# K1: the pairing's stacked Fp2 products (108 lanes a pair), the NTT
+# butterflies, the subproduct trees' widths, up to BN254's Karatsuba batch
+K1_WIDTHS = (1, 36, 108, 216, 648, 1024, 2048, 4096, 8192, 12288, 16384,
+             24576, 32768, 65536, 131072, 262144, 1048576)
+K1_NARROW = 16384
+DEFAULT = {"k1": [(4, 4), (8, 1), (8, 2), (8, 4), (16, 2), (16, 4), (32, 1),
+                  (32, 2)],
+           "g1": [(3, 2), (4, 2), (4, 4), (6, 2), (6, 4), (8, 2), (16, 2)],
            "g2": [(6, 2), (8, 2), (8, 4), (12, 2), (16, 2)],
            "merge": [(3, 2), (6, 2), (6, 4)],
            "merge-g2": [(8, 2), (8, 4), (16, 2)]}
@@ -48,6 +65,8 @@ def main(argv):
         DEFAULT[grp]
     dev = torch.device("cuda", 0)
     t0 = time.time()
+    if grp == "k1":
+        return sweep_k1(dev, layouts, t0)
     merge = grp.startswith("merge")
     libs = ["msm_merge"] if merge else ["g1_ops", "g2_ops"]
     secs = cuda.build(libs)
@@ -76,6 +95,74 @@ def main(argv):
     G._kernel_consts = cuda._u32(consts)
     print(json.dumps({"shipped": team.LAYOUT,
                       "seconds": time.time() - t0}), flush=True)
+    return 0
+
+
+def sweep_k1(dev, layouts, t0):
+    """K1's lane-team variant under each layout, and the thread-per-lane
+    variant, at K1_WIDTHS on the Fp of BN254, BLS12-381 and BN158."""
+    from kzg_tpu_torch.context import get_context
+    from kzg_tpu_torch.ops import cuda, k1_team
+    secs = cuda.build(["mont_mul"], cuda.LIMBS)
+    card = cs.smi()
+    print(card, flush=True)
+    for L in cuda.LIMBS:
+        for ln in cuda.build_log("mont_mul", L).splitlines():
+            if "registers" in ln or "spill" in ln or "stack" in ln:
+                print(f"[build] mont_mul L={L}: {ln.strip()}")
+    print(f"[build] nvcc seconds {secs}", flush=True)
+    picks = {}
+    for curve in ("BN254", cs.BLS, cs.BN158):
+        F = get_context(curve, dev).fp
+        L = F.L
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+        n = max(K1_WIDTHS)
+        a0, b0 = cs.lazy_limbs(F, n, gen), cs.lazy_limbs(F, n, gen)
+        if curve != "BN254":
+            a0[:, -64:], b0[:, -64:] = cs.wide_operands(
+                curve, F, 64, random.Random(cs.SEED))
+        ops = {}
+        for w in K1_WIDTHS:      # the first w - 64 lanes, then the wide 64
+            sl = torch.cat([torch.arange(max(w - 64, 0)),
+                            torch.arange(n - min(w, 64), n)]).to(dev)
+            a, b = a0[:, sl].contiguous(), b0[:, sl].contiguous()
+            ops[w] = (a, b, F._mul_plain(a, b))
+
+        def timed(team):
+            row = {}
+            for w, (a, b, want) in ops.items():
+                err = (cuda.mont_mul(F, a, b, team=team)
+                       - want).abs().max().item()
+                cs.check(err == 0, f"K1 L={L} team={team} lanes={w}: "
+                         f"kernel != plain (max {err})")
+                row[w] = cs.kernel_ms(
+                    lambda: cuda.mont_mul(F, a, b, team=team))
+            return row
+
+        lane = timed(False)
+        floor = {w: cs.kernel_ms(lambda: cuda.empty_launch(
+            *cuda.k1_grid(L, w, team=False))) for w in K1_WIDTHS}
+        print(json.dumps({"k1": {"limbs": L, "curve": curve,
+                                 "variant": "lane", "ms": lane,
+                                 "floor_ms": floor},
+                          "card": card}), flush=True)
+        rows = {}
+        for tw in layouts:
+            cuda._k1_tables[L] = cuda._u32(k1_team.table(L, tw))
+            rows[tw] = timed(True)
+            print(json.dumps({"k1": {
+                "limbs": L, "curve": curve, "variant": "team",
+                "team": tw[0], "warps": tw[1],
+                "columns": k1_team.columns(L, tw[0]), "ms": rows[tw]},
+                "card": card}), flush=True)
+        cuda._k1_tables.pop(L)
+        best = min(rows, key=lambda tw: sum(
+            v for w, v in rows[tw].items() if w < K1_NARROW))
+        picks[L] = {"layout": best, "lane_as_fast_from": [
+            w for w in K1_WIDTHS if lane[w] <= rows[best][w]]}
+    print(json.dumps({"k1_picks": picks, "shipped": {
+        "layout": k1_team.LAYOUT, "team_below": cuda.K1_TEAM_BELOW},
+        "seconds": time.time() - t0}), flush=True)
     return 0
 
 
