@@ -75,10 +75,36 @@ mismatch or exception exits non-zero before the result line):
                BN loop and tail), main_path_bn158 and profile_bn158 lines,
                K1-K5 at 11 limbs must all run; then its msm phase
                (msm_bn158, K6 at 11 limbs must run);
-  8. kernels line — each kernel held against its plain version once more at
+  8. multiproof — proofs above MULTIEVAL_DIRECT = 256 points on the BN254
+               main phase's setup and polynomial: create_proof(p, 0, k) for
+               k = 257 (segments 256 + 1), 512 and 4096 (the subproduct-tree
+               branch of multieval) equals the oracle's [q(s)] G1 (a
+               barycentric O(k) form, held to the O(k^2) one at small k) and
+               verifies; a flipped byte is refuted at k = 257; its launches
+               and shapes join BN254's paths in the sweep;
+  9. cli     — kzg_tpu_torch.cli in-process from a peer directory beside a
+               shared/: setup 5000 (its export reloaded), then on the main
+               path's setup commit, prove, verify (exit 0) and a flipped
+               byte (exit 1) of a 126,975-byte file (4096 chunks when
+               padded), commitment and proof equal to the oracle's; BLS12-381
+               and BN158 commit, prove and verify once on the demo's document
+               against a 16-term setup from a known secret; wall ms and
+               launches per command;
+ 10. demo    — kzg_tpu_torch.demo.run_demo() (demo/run-demo on a copy, its
+               kzg-cli the port's CLI): exit 0, both hours' storage proofs
+               VALID, "demo complete";
+ 11. parallel — 4 ranks sharing the card over gloo, then 1 rank over nccl
+               (torch.multiprocessing spawn, a file:// rendezvous):
+               sharded_msm (merge) over 4096 points ==
+               the single-process msm (G1, G2), sharded_setup_powers of the
+               5000-term setup == from_secret's points (G1, G2),
+               DistributedNTT forward / inverse / conv == PolyEngine's on
+               BLS12-381's Fr at n = 8192 and BN158's at 4096; wall ms and
+               launches per rank;
+ 12. kernels line — each kernel held against its plain version once more at
                the heaviest shape its path gave it, then one JSON object:
-               each kernel's launches on its curve's main and msm paths,
-               its largest error against the plain version, its device time
+               each kernel's launches on its curve's main and msm paths
+               (and BN254's multiproof path), its largest error against the plain version, its device time
                per launch, the plain version's time per call, and the bound
                at that shape; before it the "sweep" line: K1-K6 of each
                limb count held against their plain versions and timed at
@@ -137,6 +163,23 @@ PATH_KERNELS = {"BN254": MAIN_KERNELS,
 LABEL = {"BN254": ("main", ""), BLS: ("main_bls", "_bls"),
          BN158: ("main_bn158", "_bn158")}
 MAIN_SECRET = 0xBEEF_CAFE_0123           # bench.py's setup secret
+# the cli phase: a file of 4096 chunks of 31 bytes less one byte (the CLI
+# pads it to 4096 chunks: the main path's width), the seed of its prove, and
+# BLS12-381's and BN158's setup from a known secret for the demo's document
+# (9 and 14 chunks: commit needs more terms than chunks)
+CLI_FILE_BYTES = 4096 * 31 - 1
+CLI_SEED = 20261018
+CLI_SMALL_TERMS = 16
+CLI_SMALL_SECRET = 0xC0FFEE_1234_5678_9ABC_DEF0
+MULTIPROOF_K = (257, 512, 4096)          # above MULTIEVAL_DIRECT = 256
+# the parallel phase: ranks sharing the one card, the sharded msm's points
+# (a multiple of the ranks) and the four-step NTT's sizes per curve; the
+# groups it forms: the ranks over gloo (staged through the host), then one
+# rank over nccl (device tensors straight to the collectives)
+PAR_RANKS = 4
+PAR_RUNS = ((PAR_RANKS, "gloo"), (1, "nccl"))
+PAR_MSM_POINTS = 4096
+PAR_NTT = {"BLS12381": 8192, "BN158": 4096}
 # published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores (67 TFLOP/s, an FMA counted as two
 # operations), taken as the ceiling for the kernels' integer
@@ -796,6 +839,12 @@ def phase_oracle(dev, curve=BN158):
          "false")
 
 
+def main_message():
+    """bench.py's message: DEGREE + 1 printable characters."""
+    rng = random.Random(1)
+    return "".join(chr(rng.randrange(32, 127)) for _ in range(DEGREE + 1))
+
+
 def phase_main(dev, card, curve="BN254"):
     """bench.py's path on `curve`; its JSON lines are main_path and profile
     on BN254, main_path_bls and profile_bls on BLS12-381, main_path_bn158
@@ -805,8 +854,7 @@ def phase_main(dev, card, curve="BN254"):
     label, sfx = LABEL[curve]
     required = PATH_KERNELS[curve]
     pc = kzg.init(curve, device=dev)
-    random.seed(1)                       # bench.py's message
-    data = "".join(chr(random.randrange(32, 127)) for _ in range(DEGREE + 1))
+    data = main_message()
     per_op = {}
     t_all = time.time()
     cuda.reset_counts()
@@ -944,6 +992,475 @@ def phase_msm(card, main_state):
          f"{res['g2']['warm_median_ms']:.1f} ms); log and scan over {m} "
          f"points == chunked; launches {launches}")
     return launches, shapes
+
+
+# ----------------------------------------------------------------------
+# step 3 of the port: the CLI, the demo, proofs above MULTIEVAL_DIRECT
+# points and the multi-device paths
+# ----------------------------------------------------------------------
+
+def interp_at(ys, off, x, r):
+    """I(x) of the unique I with I(off + i) = ys[i] for i < k (python ints):
+    the barycentric form over consecutive points, O(k):
+    I(x) = Z(x) sum_i ys[i] w_i / (x - off - i), with Z the points'
+    vanishing polynomial and w_i = (-1)^(k-1-i) / (i! (k-1-i)!)."""
+    k = len(ys)
+    fact = [1] * k
+    for i in range(1, k):
+        fact[i] = fact[i - 1] * i % r
+    diffs = [(x - off - i) % r for i in range(k)]
+    if 0 in diffs:
+        return ys[diffs.index(0)] % r
+    tot = 0
+    for i, y in enumerate(ys):
+        d = fact[i] * fact[k - 1 - i] * diffs[i] % r
+        t = y * pow(d, -1, r)
+        tot += -t if (k - 1 - i) % 2 else t
+    return math.prod(diffs) * tot % r
+
+
+def proof_scalar(ps, ys, off, s, r):
+    """q(s) of the proof of the points off .. off + k - 1 with values ys,
+    given p(s): (p(s) - I(s)) / Z(s), O(k)."""
+    z = math.prod(s - off - i for i in range(len(ys))) % r
+    return (ps - interp_at(ys, off, s, r)) * pow(z, -1, r) % r
+
+
+def chunks_of(data, size):
+    """The blob scalars of `data`: little-endian chunks of `size` bytes."""
+    return [int.from_bytes(data[i:i + size], "little")
+            for i in range(0, len(data), size)]
+
+
+def run_cli(argv, cwd, dev):
+    """kzg_tpu_torch.cli.main in-process in `cwd` (the working directory
+    restored after): (exit code, stdout, wall ms, launches by kernel)."""
+    import contextlib
+    import io
+
+    from kzg_tpu_torch import cli
+    from kzg_tpu_torch.ops import cuda
+    out = io.StringIO()
+    old = os.getcwd()
+    before = cuda.counts()
+    os.chdir(cwd)
+    try:
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv, device=dev)
+        sync()
+        ms = (time.time() - t0) * 1e3
+    finally:
+        os.chdir(old)
+    after = cuda.counts()
+    return rc, out.getvalue(), ms, {k: after[k] - before[k] for k in after
+                                   if after[k] > before[k]}
+
+
+def cli_round(tmp, dev, curve, data, seed, secret, refute):
+    """commit, prove SEED and verify (exit 0) of `data` through the CLI on
+    `curve`, against the setup from `secret` in tmp/shared, and where
+    `refute` a flipped byte's verify (exit 1); the commitment and the proof
+    held to the oracle's [p(s)] G1 and [q(s)] G1 (barycentric forms).
+    Returns {command: {"ms", "launches"}}."""
+    from kzg_tpu_torch.curves.params import get_curve
+    from kzg_tpu_torch.protocol.serial import serialize_g1
+    from kzg_tpu_torch.refmodel.model import G1
+    cp = get_curve(curve)
+    r, og = cp.r, G1(cp)
+    peer = os.path.join(tmp, "peer")
+    path = os.path.join(peer, "data.bin")
+    with open(path, "wb") as f:
+        f.write(data)
+    flag = [] if curve == "BN254" else [f"--curve={curve}"]
+    res = {}
+
+    def cmd(name, *args):
+        rc, out, ms, launches = run_cli(flag + [name, *args], peer, dev)
+        res[name if name not in res else name + "_refute"] = {
+            "ms": ms, "launches": launches}
+        return rc, out
+
+    # commit's chunks (CURVE_ORDER_BYTES - 1) and prove's (MAX_CHUNK_BYTES)
+    # have one size
+    size = cp.max_chunk_bytes
+    padded = data + b"\x00" * (size - len(data) % size)
+    ys = chunks_of(padded, size)
+    ps = interp_at(ys, 0, secret, r)
+    rc, out = cmd("commit", path)
+    check(rc == 0 and out.strip() == serialize_g1(og.mul(ps, og.gen),
+                                                  cp).hex(),
+          f"cli {curve} commit != the oracle's [p(s)] G1")
+    rc, out = cmd("prove", path, str(seed))
+    proof_hex, off, data_hex = out.split()
+    want_off = seed % (len(data) // size - 4)
+    q = proof_scalar(ps, ys[want_off:want_off + 4], want_off, secret, r)
+    check(rc == 0 and int(off) == want_off and
+          proof_hex == serialize_g1(og.mul(q, og.gen), cp).hex() and
+          data_hex == padded[want_off * size:(want_off + 4) * size].hex(),
+          f"cli {curve} prove != the oracle's [q(s)] G1 at chunk {want_off}")
+    commit_hex = serialize_g1(og.mul(ps, og.gen), cp).hex()
+    rc, _ = cmd("verify", commit_hex, proof_hex, off, data_hex)
+    check(rc == 0, f"cli {curve} verify exits {rc}, not 0")
+    if not refute:
+        return res
+    bad = bytearray(bytes.fromhex(data_hex))
+    bad[size + 2] ^= 1
+    rc, _ = cmd("verify", commit_hex, proof_hex, off, bad.hex())
+    check(rc == 1, f"cli {curve} verify of a flipped byte exits {rc}, not 1")
+    return res
+
+
+def phase_cli(dev, card, main_state):
+    """The CLI (kzg_tpu_torch.cli, in-process, from a peer directory beside
+    shared/): BN254 setup 5000 (timed, its export reloaded), then on the
+    main path's from_secret setup commit, prove, verify and a flipped byte
+    of a file of CLI_FILE_BYTES (4096 chunks when padded), held to the
+    oracle; BLS12-381 and BN158 once each on the demo's document against a
+    CLI_SMALL_TERMS-term setup from a known secret. Launches counted from 0
+    over the phase (K1-K5 of BN254 must run) and per command."""
+    import tempfile
+
+    import kzg_tpu_torch as kzg
+    from kzg_tpu_torch.ops import cuda
+    ts_main = main_state[0]
+    t_all = time.time()
+    cuda.reset_counts()
+    res = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="kzg_cli_") as tmp:
+        shared = os.path.join(tmp, "shared")
+        os.makedirs(shared)
+        os.makedirs(os.path.join(tmp, "peer"))
+        public = os.path.join(shared, "kzg_public")
+        rc, out, ms, launches = run_cli(["setup", str(SETUP_TERMS)], shared,
+                                        dev)
+        check(rc == 0 and out.splitlines()[1] ==
+              f"  num_coeff={SETUP_TERMS}", f"cli setup: {rc} {out!r}")
+        t0 = time.time()
+        kzg.init("BN254", device=dev)
+        back = kzg.trusted_setup(public)
+        check(back._n == SETUP_TERMS and len(back._g2) == SETUP_TERMS,
+              "cli setup's export reloads with its length")
+        res["setup"] = {"terms": SETUP_TERMS, "ms": ms, "launches": launches,
+                        "reload_ms": (time.time() - t0) * 1e3}
+        ts_main.export_setup(public)              # the main path's setup
+        data = random.Random(SEED).randbytes(CLI_FILE_BYTES)
+        res["BN254"] = cli_round(tmp, dev, "BN254", data, CLI_SEED,
+                                 MAIN_SECRET, refute=True)
+        res["BN254"]["file_bytes"] = CLI_FILE_BYTES
+        with open(os.path.join(HERE, "demo", "peer-a", "document.txt"),
+                  "rb") as f:
+            doc = f.read()
+        for curve in (BLS, BN158):
+            kzg.init(curve, device=dev)
+            kzg.trusted_setup.from_secret(CLI_SMALL_SECRET,
+                                          CLI_SMALL_TERMS).export_setup(
+                                              public)
+            res[curve] = cli_round(tmp, dev, curve, doc, CLI_SEED,
+                                   CLI_SMALL_SECRET, refute=False)
+    launches = cuda.counts()
+    for name in MAIN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} not launched on the cli "
+              "path")
+    print(json.dumps({"cli": res}), flush=True)
+    b = res["BN254"]
+    line("cli", t_all, f"card {card}: setup {SETUP_TERMS} "
+         f"{res['setup']['ms']:.0f} ms (export reloads); BN254 on "
+         f"{CLI_FILE_BYTES} bytes: commit {b['commit']['ms']:.0f} ms, prove "
+         f"{b['prove']['ms']:.0f} ms == the oracle's, verify 0 "
+         f"({b['verify']['ms']:.0f} ms), flipped byte 1; BLS12381 and BN158 "
+         "on the demo's document == the oracle's, verify 0")
+
+
+def phase_demo(card):
+    """kzg_tpu_torch.demo.run_demo() on the card: the demo's own sizes
+    (SETUP_TERMS 512, its 264-byte document); every CLI call is a process of
+    its own, so its launches are not counted here (the cli phase counts the
+    same calls in-process)."""
+    from kzg_tpu_torch.demo import run_demo
+    t0 = time.time()
+    rc, out = run_demo(timeout=600)
+    ms = (time.time() - t0) * 1e3
+    tail = out.strip().splitlines()
+    check(rc == 0, f"demo exits {rc}:\n{out[-3000:]}")
+    check(tail and tail[-1] == "demo complete", "demo does not complete")
+    check(out.count("storage proof VALID") == 2,
+          "demo: both hours' storage proofs VALID")
+    print(json.dumps({"demo": {"card": card, "wall_ms": ms,
+                               "lines": len(tail)}}), flush=True)
+    line("demo", t0, f"run-demo exit 0 in {ms:.0f} ms, both hours' storage "
+         "proofs VALID, demo complete")
+
+
+def phase_multiproof(card, main_state, data):
+    """Proofs above MULTIEVAL_DIRECT points (the subproduct-tree branch of
+    multieval) on the BN254 main phase's setup and polynomial: for k in
+    MULTIPROOF_K, create_proof(p, 0, k) equals the oracle's [q(s)] G1
+    (barycentric, checked against the O(k^2) form at small k) and verifies,
+    and at the first k a flipped byte is refuted. Launches counted from 0
+    over the phase (K1, K2 and K4 must run); returns (launches, shapes)."""
+    import kzg_tpu_torch as kzg
+    from kzg_tpu_torch.ops import cuda
+    from kzg_tpu_torch.ops.poly import MULTIEVAL_DIRECT
+    from kzg_tpu_torch.refmodel.model import G1
+    ts, p, c = main_state
+    pc = ts._pc
+    r, og = pc.cp.r, G1(pc.cp)
+    check(min(MULTIPROOF_K) > MULTIEVAL_DIRECT, "multiproof: every k above "
+          "MULTIEVAL_DIRECT")
+    ys = [ord(ch) for ch in data]
+    ps = interp_at(ys, 0, MAIN_SECRET, r)
+    coeffs = p.coeffs
+    check(ps == poly_at(coeffs, MAIN_SECRET, r), "multiproof: p(s)")
+    for k in (1, 5):                           # the O(k) form == the O(k^2)
+        check(og.mul(proof_scalar(ps, ys[3:3 + k], 3, MAIN_SECRET, r),
+                     og.gen) == oracle_proof(og, r, coeffs, 3, k,
+                                             MAIN_SECRET),
+              f"multiproof: barycentric q(s) != the O(k^2) form at k={k}")
+    t_all = time.time()
+    cuda.reset_counts()
+    res = {}
+    for k in MULTIPROOF_K:
+        before = cuda.counts()
+        t0 = time.time()
+        pr = ts.create_proof(p, 0, k)
+        sync()
+        prove_ms = (time.time() - t0) * 1e3
+        t0 = time.time()
+        ok = ts.verify_proof(c, pr, kzg.blob.from_string(data[:k], 0))
+        verify_ms = (time.time() - t0) * 1e3
+        after = cuda.counts()
+        check(ok is True, f"multiproof k={k}: verify_proof is true")
+        q = proof_scalar(ps, ys[:k], 0, MAIN_SECRET, r)
+        check(pr.curve_point == og.mul(q, og.gen),
+              f"multiproof k={k}: proof != the oracle's [q(s)] G1")
+        res[k] = {"prove_ms": prove_ms, "verify_ms": verify_ms,
+                  "launches": {n: after[n] - before[n] for n in after
+                               if after[n] > before[n]}}
+        if k == MULTIPROOF_K[0]:
+            bad = data[:k // 2] + chr(ord(data[k // 2]) ^ 1) + data[k // 2 + 1:k]
+            check(not ts.verify_proof(c, pr, kzg.blob.from_string(bad, 0)),
+                  f"multiproof k={k}: a flipped byte is refuted")
+    launches = cuda.counts()
+    shapes = {n: dict(v.shapes) for n, v in cuda.KERNELS.items()}
+    print(json.dumps({"multiproof": {"card": card, **res}}), flush=True)
+    # the setup's shifted bases are built, so K3 and K5 do not run here
+    for name in ("mont_mul", "g1_add", "g2_add"):
+        check(launches[name] > 0, f"kernel {name} not launched on the "
+              "multiproof path")
+    line("multiproof", t_all, "BN254 create_proof(p, 0, k) == the oracle's "
+         "[q(s)] G1 and verifies at k = " + ", ".join(
+             f"{k} ({v['prove_ms']:.0f} / {v['verify_ms']:.0f} ms)"
+             for k, v in res.items()) + f"; flipped byte refuted at k = "
+         f"{MULTIPROOF_K[0]}")
+    return launches, shapes
+
+
+def _parallel_rank(rank, ranks, rdv, inputs, out):
+    """One of `ranks` ranks of the parallel phase (spawned; inputs["backend"]
+    over a file:// rendezvous, every rank on the card unless
+    inputs["device"] says otherwise): the sharded merge MSM (G1, G2), the sharded setup and the
+    four-step NTT (forward, inverse, conv) on BLS12-381's and BN158's Fr, on
+    the inputs saved at inputs["path"]. Rank 0 gathers every rank's results,
+    times and launches into `out`."""
+    import torch.distributed as dist
+
+    import kzg_tpu_torch as kzg
+    from kzg_tpu_torch.context import get_context
+    from kzg_tpu_torch.ops import cuda
+    from kzg_tpu_torch.ops.msm import MSMEngine
+    from kzg_tpu_torch.ops.poly import PolyEngine
+    from kzg_tpu_torch.parallel.distributed import init_distributed
+    from kzg_tpu_torch.parallel.ntt import DistributedNTT
+    from kzg_tpu_torch.parallel.sharded import (gather, make_mesh, shard,
+                                                sharded_msm,
+                                                sharded_setup_powers)
+    from kzg_tpu_torch.protocol.api import power_digits
+    dev_name = inputs["device"]
+    init_distributed(inputs["backend"], f"file://{rdv}", ranks, rank)
+    mesh = make_mesh(ranks, device=dev_name)
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    data = torch.load(inputs["path"])
+    res, ms, launches = {}, {}, {}
+
+    def once(fn):
+        if dev.type == "cuda":
+            sync()
+        dist.barrier()
+        t0 = time.time()
+        outv = fn()
+        if dev.type == "cuda":
+            sync()
+        dist.barrier()
+        return outv, (time.time() - t0) * 1e3
+
+    def timed(name, fn, warm=True):
+        """fn's cold run (its launches counted from 0) and, where `warm`,
+        a second run: their wall ms between barriers."""
+        cuda.reset_counts()
+        outv, cold = once(fn)
+        launches[name] = {k: v for k, v in cuda.counts().items() if v}
+        ms[name] = {"cold": cold}
+        if warm:
+            outv, ms[name]["warm"] = once(fn)
+        return outv
+
+    pc = kzg.init("BN254", device=dev)
+    ctx = pc.ctx
+    sraw = data["scalars"].to(dev)
+    for grp, G in (("g1", ctx.g1), ("g2", ctx.g2)):
+        pts = {k: v.to(dev) for k, v in data[grp].items()}
+        merge = MSMEngine(G, ctx.fr, ctx.cp.r, strategy="merge")
+        run = sharded_msm(merge, mesh)
+        tot = timed(f"msm_{grp}", lambda: run(shard(sraw, mesh),
+                                              shard(pts, mesh)))
+        res[f"msm_{grp}"] = G.affine_packed(
+            {k: v[..., None] for k, v in tot.items()}).cpu()
+    digits = power_digits(ctx.cp.r, MAIN_SECRET, data["setup_terms"], dev)
+    wt1, wt2 = timed("setup_tables", pc.comb_tables, warm=False)
+    for grp, G, wt in (("g1", ctx.g1, wt1), ("g2", ctx.g2, wt2)):
+        run = sharded_setup_powers(G, mesh)
+        block = timed(f"setup_{grp}", lambda: run(digits, wt))
+        res[f"setup_{grp}_block"] = block["x"].shape[-1]
+        res[f"setup_{grp}"] = G.affine_packed(gather(block, mesh)).cpu()
+    for curve, xab in data["ntt"].items():
+        c2 = get_context(curve, dev)
+        F = c2.fr
+        pe = PolyEngine(F, c2.cp)
+        dntt = DistributedNTT(pe, mesh)
+        x, a, b = (xab[k].to(dev) for k in ("x", "a", "b"))
+        n = x.shape[-1]
+        out_n = a.shape[-1] + b.shape[-1] - 1
+        xs = shard(x, mesh)
+        fwd = timed(f"ntt_{curve}", lambda: dntt(xs))
+        back = timed(f"intt_{curve}", lambda: dntt(fwd, inverse=True))
+        ca, cb = (shard(pe._pad_last(v, n), mesh) for v in (a, b))
+        conv = timed(f"conv_{curve}", lambda: dntt.conv(ca, cb, out_n))
+        canon = (lambda v: F.canon(F.from_mont(v)).cpu())
+        res[f"ntt_{curve}"] = canon(gather(fwd, mesh))
+        res[f"intt_{curve}"] = canon(gather(back, mesh))
+        parts = [None] * ranks
+        dist.all_gather_object(parts, canon(conv))
+        res[f"conv_{curve}"] = torch.cat(parts, dim=-1)
+    every = [None] * ranks
+    dist.all_gather_object(every, {"ms": ms, "launches": launches})
+    if rank == 0:
+        torch.save({"res": res, "ranks_out": every}, out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_parallel(card, main_state, dev_name="cuda"):
+    """The multi-device paths, once for each group of PAR_RUNS: PAR_RANKS
+    ranks sharing the one card over gloo, then one rank over nccl (spawned
+    with torch.multiprocessing, a file:// rendezvous; kernels built by
+    phase_build, the ranks only load them): sharded_msm (merge) over the
+    first PAR_MSM_POINTS setup points and coefficients == the single-process
+    msm, G1 and G2; sharded_setup_powers for SETUP_TERMS terms from the main
+    path's secret == from_secret's points, G1 and G2; DistributedNTT forward
+    and inverse == PolyEngine.ntt and the input, its conv == PolyEngine.conv,
+    at PAR_NTT's sizes. Each rank counts its own launches from 0 per
+    subsystem; the K2/K4 adds, K6 and K1 must run on every rank."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from kzg_tpu_torch.ops.msm import MSMEngine
+    from kzg_tpu_torch.ops.poly import PolyEngine
+    from kzg_tpu_torch.context import get_context
+    ts, p, _ = main_state
+    pc = ts._pc
+    ctx = pc.ctx
+    t_all = time.time()
+    n = PAR_MSM_POINTS
+    sraw = pc.fr_raw(p.device_coeffs(pc))[..., :n]
+    first = {grp: {k: v[..., :n] for k, v in pts.items()}
+             for grp, pts in (("g1", ts._g1_points_dev()),
+                              ("g2", ts._g2_points_dev()))}
+    want = {}
+    for grp, G in (("g1", ctx.g1), ("g2", ctx.g2)):
+        eng = MSMEngine(G, ctx.fr, ctx.cp.r, strategy="merge")
+        want[f"msm_{grp}"] = G.affine_packed(
+            {k: v[..., None] for k, v in eng.msm(sraw, first[grp]).items()})
+        want[f"setup_{grp}"] = G.affine_packed(
+            ts._g1_points_dev() if grp == "g1" else ts._g2_points_dev())
+    rng = random.Random(SEED + 11)
+    inputs = {"scalars": sraw.cpu(), "setup_terms": ts._n, "ntt": {},
+              **{grp: {k: v.cpu() for k, v in pts.items()}
+                 for grp, pts in first.items()}}
+    for curve, size in PAR_NTT.items():
+        c2 = get_context(curve, ctx.device)
+        F, r = c2.fr, c2.cp.r
+        pe = PolyEngine(F, c2.cp)
+        x = F.encode([rng.randrange(r) for _ in range(size)])
+        a = F.encode([rng.randrange(r) for _ in range(size // 2)])
+        b = F.encode([rng.randrange(r) for _ in range(size // 2)])
+        inputs["ntt"][curve] = {"x": x.cpu(), "a": a.cpu(), "b": b.cpu()}
+        fwd = pe.ntt(x)
+        want[f"ntt_{curve}"] = F.canon(F.from_mont(fwd))
+        want[f"intt_{curve}"] = F.canon(F.from_mont(x))
+        want[f"conv_{curve}"] = F.canon(F.from_mont(pe.conv(a, b)))
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="kzg_par_") as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save(inputs, path)
+        for ranks, backend in PAR_RUNS:
+            out = os.path.join(tmp, f"out_{backend}.pt")
+            t0 = time.time()
+            mp.spawn(_parallel_rank,
+                     args=(ranks, os.path.join(tmp, f"rdv_{backend}"),
+                           {"path": path, "device": dev_name,
+                            "backend": backend}, out),
+                     nprocs=ranks, join=True)
+            runs[backend] = {"ranks": ranks,
+                             "spawn_to_join_ms": (time.time() - t0) * 1e3,
+                             **torch.load(out)}
+    need = {"msm_g1": ("g1_add", "merge_combine_g1"),
+            "msm_g2": ("g2_add", "merge_combine_g2"),
+            "setup_g1": ("g1_add",), "setup_g2": ("g2_add",),
+            **{f"{op}_{curve}": ("mont_mul" if curve == BLS else
+                                 "mont_mul@11",)
+               for curve in PAR_NTT for op in ("ntt", "intt", "conv")}}
+    for backend, run in runs.items():
+        res, ranks = run["res"], run["ranks"]
+        what = f"parallel ({backend}, {ranks} ranks)"
+        for key, w in want.items():
+            check(torch.equal(res[key], w.cpu()), f"{what} {key} != the "
+                  "single-process result")
+        check(res["setup_g1_block"] == res["setup_g2_block"] ==
+              ts._n // ranks, f"{what} setup: a rank's block")
+        for i, rk in enumerate(run["ranks_out"]):
+            for sub, names in need.items():
+                for name in names:
+                    check(rk["launches"][sub].get(name, 0) > 0,
+                          f"{what} rank {i} {sub}: kernel {name} not "
+                          "launched")
+    print(json.dumps({"parallel": {
+        "card": card, "msm_points": n, "setup_terms": ts._n, "ntt": PAR_NTT,
+        **{backend: {"ranks": run["ranks"],
+                     "spawn_to_join_ms": run["spawn_to_join_ms"],
+                     "wall_ms_by_rank": [rk["ms"] for rk in run["ranks_out"]],
+                     "launches_by_rank": [rk["launches"]
+                                          for rk in run["ranks_out"]]}
+           for backend, run in runs.items()}}}), flush=True)
+
+    def warm(backend, key):
+        v = runs[backend]["ranks_out"][0]["ms"][key]
+        return v.get("warm", v["cold"])
+    line("parallel", t_all, "sharded msm over "
+         f"{n} points == msm, sharded setup of {ts._n} == from_secret, "
+         "DistributedNTT forward / inverse / conv == PolyEngine at "
+         + ", ".join(f"{c} n={v}" for c, v in PAR_NTT.items()) + "; "
+         + "; ".join(
+             f"{run['ranks']} rank(s) over {backend}: warm rank 0 msm G1 "
+             f"{warm(backend, 'msm_g1'):.0f} ms, G2 "
+             f"{warm(backend, 'msm_g2'):.0f} ms, setup G1 "
+             f"{warm(backend, 'setup_g1'):.0f} ms, G2 "
+             f"{warm(backend, 'setup_g2'):.0f} ms, spawn to join "
+             f"{run['spawn_to_join_ms']:.0f} ms"
+             for backend, run in runs.items()))
 
 
 def profile_ops(ops, top=6):
@@ -1336,7 +1853,7 @@ def phase_kernel_line(dev, curve_paths, errs):
          "launches queued behind a spin kernel), event_ms and plain_ms = "
          "CUDA events around back-to-back calls (host gaps included; plain "
          "= the PyTorch version on the same tensors); launches = its "
-         "curve's main and msm paths' runs")
+         "curve's main and msm paths' runs (BN254's with multiproof)")
 
 
 def main_only(dev):
@@ -1377,12 +1894,17 @@ def main():
     phase_golden(dev)
     phase_golden(dev, BLS)
     phase_oracle(dev, BN158)
-    curve_paths = {}
+    curve_paths, states = {}, {}
     for curve in ("BN254", BLS, BN158):
-        launches, shapes, state = phase_main(dev, card, curve)
+        launches, shapes, states[curve] = phase_main(dev, card, curve)
         label, sfx = LABEL[curve]
         curve_paths[curve] = {label: (launches, shapes),
-                              "msm" + sfx: phase_msm(card, state)}
+                              "msm" + sfx: phase_msm(card, states[curve])}
+    curve_paths["BN254"]["multiproof"] = phase_multiproof(
+        card, states["BN254"], main_message())
+    phase_cli(dev, card, states["BN254"])
+    phase_demo(card)
+    phase_parallel(card, states["BN254"])
     phase_kernel_line(dev, curve_paths, errs)
     check("jax" not in sys.modules and not any(
         m == "kzg_tpu" or m.startswith("kzg_tpu.") for m in sys.modules),

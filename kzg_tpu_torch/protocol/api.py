@@ -250,6 +250,19 @@ class proof(_PointWrapper):
 # trusted_setup (reference src/trusted_setup.cpp)
 # --------------------------------------------------------------------------
 
+def power_digits(r: int, s: int, n: int, device=None) -> torch.Tensor:
+    """The comb's input: byte digits (W, n) int64 of s^i mod r for i < n,
+    little-endian, W = the byte length of r."""
+    nbytes = (r.bit_length() + 7) // 8
+    buf = bytearray()
+    acc = 1
+    for _ in range(n):
+        buf += acc.to_bytes(nbytes, "little")
+        acc = acc * s % r
+    mat = np.frombuffer(bytes(buf), np.uint8).reshape(n, nbytes)
+    return torch.from_numpy(mat.T.astype(np.int64)).to(device)
+
+
 class SetupSelfCheckError(RuntimeError):
     """Generated setup disagrees with the exact python oracle at a probe
     index."""
@@ -315,29 +328,17 @@ class trusted_setup:
     #    batched complete-add levels per group), then an exact oracle
     #    self-check at three probe indices --------------------------------
     def _generate(self, s: int, num_coeff: int):
-        r = self._pc.cp.r
+        pc = self._pc
         self._n = num_coeff
-        powers = []
-        acc = 1
-        for _ in range(num_coeff):
-            powers.append(acc)
-            acc = acc * s % r
-        nbytes = (r.bit_length() + 7) // 8
-        buf = b"".join(v.to_bytes(nbytes, "little") for v in powers)
-        byte_mat = np.frombuffer(buf, np.uint8).reshape(num_coeff, nbytes)
-        self._gen_comb(byte_mat)
+        digits = power_digits(pc.cp.r, s, num_coeff, pc.device)
+        wt1, wt2 = pc.comb_tables()
+        self._g1_dev = pc.ctx.g1.mul_digits_table(digits, wt1)
+        self._g2_dev = pc.ctx.g2.mul_digits_table(digits, wt2)
         self._check_setup(s, num_coeff)
 
     @staticmethod
     def _chk_idx(num_coeff):
         return [0, 1, num_coeff - 1]
-
-    def _gen_comb(self, byte_mat):
-        pc = self._pc
-        digits = torch.from_numpy(byte_mat.T.astype(np.int64)).to(pc.device)
-        wt1, wt2 = pc.comb_tables()
-        self._g1_dev = pc.ctx.g1.mul_digits_table(digits, wt1)
-        self._g2_dev = pc.ctx.g2.mul_digits_table(digits, wt2)
 
     def _check_setup(self, s: int, num_coeff: int):
         pc = self._pc

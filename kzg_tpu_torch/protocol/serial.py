@@ -25,6 +25,21 @@ from ..refmodel.model import G2 as OracleG2
 
 
 # ----------------------------------------------------------------------------
+# hex
+# ----------------------------------------------------------------------------
+
+def to_hex(b: bytes) -> str:
+    return b.hex()
+
+
+def from_hex(s: str) -> bytes:
+    s = s.strip()
+    if len(s) % 2:
+        s = s + "0"        # match strtol-based 2-char stepping tolerance
+    return bytes.fromhex(s)
+
+
+# ----------------------------------------------------------------------------
 # G1 points
 # ----------------------------------------------------------------------------
 

@@ -194,13 +194,17 @@ def test_constants_equal_kzg_tpu():
 
 
 def test_imports_no_jax():
-    """In a fresh interpreter the port commits on the CPU without loading
-    any jax module or anything of kzg_tpu."""
+    """In a fresh interpreter the port (with its CLI, demo launcher and
+    multi-device modules imported) commits on the CPU without loading any
+    jax module or anything of kzg_tpu."""
     code = (
         "import sys, json\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "import kzg_tpu_torch as kzg\n"
+        "import kzg_tpu_torch.cli, kzg_tpu_torch.demo\n"
+        "import kzg_tpu_torch.parallel.distributed\n"
+        "import kzg_tpu_torch.parallel.sharded, kzg_tpu_torch.parallel.ntt\n"
         "kzg.init('BN254', device='cpu')\n"
         f"ts = kzg.trusted_setup({SETUP_FILE!r})\n"
         "p = kzg.poly.from_blob(kzg.blob.from_string('hi'))\n"
