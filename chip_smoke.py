@@ -82,18 +82,29 @@ mismatch or exception exits non-zero before the result line):
                barycentric O(k) form, held to the O(k^2) one at small k) and
                verifies; a flipped byte is refuted at k = 257; its launches
                and shapes join BN254's paths in the sweep;
-  9. cli     — kzg_tpu_torch.cli in-process from a peer directory beside a
+  9. native  — the native codec library (kzg_tpu_torch/native.py, host
+               C++) built with the machine's C++ compiler (compiler and
+               seconds printed); each method exactly equal to its plain
+               python version at the main path's sizes (4096 chunks of 31
+               bytes; the G1 and G2 coordinates of the 5000-term setup's
+               kzg_public bytes; the degree-4096 polynomial's stream; a
+               proof's hex); a short buffer raises; blob.from_bytes ->
+               from_blob at 4096 chunks (the limb matrix uploaded without
+               python ints) gives the device coefficients of the ints path,
+               both timed on the host; K1 must run;
+ 10. cli     — kzg_tpu_torch.cli in-process from a peer directory beside a
                shared/: setup 5000 (its export reloaded), then on the main
-               path's setup commit, prove, verify (exit 0) and a flipped
+               path's setup commit, prove (both through the native
+               library's limb matrix), verify (exit 0) and a flipped
                byte (exit 1) of a 126,975-byte file (4096 chunks when
                padded), commitment and proof equal to the oracle's; BLS12-381
                and BN158 commit, prove and verify once on the demo's document
                against a 16-term setup from a known secret; wall ms and
                launches per command;
- 10. demo    — kzg_tpu_torch.demo.run_demo() (demo/run-demo on a copy, its
+ 11. demo    — kzg_tpu_torch.demo.run_demo() (demo/run-demo on a copy, its
                kzg-cli the port's CLI): exit 0, both hours' storage proofs
                VALID, "demo complete";
- 11. parallel — 4 ranks sharing the card over gloo, then 1 rank over nccl
+ 12. parallel — 4 ranks sharing the card over gloo, then 1 rank over nccl
                (torch.multiprocessing spawn, a file:// rendezvous):
                sharded_msm (merge) over 4096 points ==
                the single-process msm (G1, G2), sharded_setup_powers of the
@@ -101,7 +112,7 @@ mismatch or exception exits non-zero before the result line):
                DistributedNTT forward / inverse / conv == PolyEngine's on
                BLS12-381's Fr at n = 8192 and BN158's at 4096; wall ms and
                launches per rank;
- 12. kernels line — each kernel held against its plain version once more at
+ 13. kernels line — each kernel held against its plain version once more at
                the heaviest shape its path gave it, then one JSON object:
                each kernel's launches on its curve's main and msm paths
                (and BN254's multiproof path), its largest error against the plain version, its device time
@@ -176,6 +187,9 @@ MULTIPROOF_K = (257, 512, 4096)          # above MULTIEVAL_DIRECT = 256
 # (a multiple of the ranks) and the four-step NTT's sizes per curve; the
 # groups it forms: the ranks over gloo (staged through the host), then one
 # rank over nccl (device tensors straight to the collectives)
+NATIVE_CHUNKS = 4096                     # the native phase's blob
+NATIVE_CHUNK = 31
+NATIVE_RUNS = 5                          # host-clock means of the codecs
 PAR_RANKS = 4
 PAR_RUNS = ((PAR_RANKS, "gloo"), (1, "nccl"))
 PAR_MSM_POINTS = 4096
@@ -1256,6 +1270,185 @@ def phase_multiproof(card, main_state, data):
     return launches, shapes
 
 
+def mean_ms(fn, runs=NATIVE_RUNS):
+    """(last result, mean host ms of `runs` calls) of host-only work."""
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        out = fn()
+    return out, (time.perf_counter() - t0) * 1e3 / runs
+
+
+def phase_native(dev, card, main_state):
+    """The native codec library (kzg_tpu_torch/native.py over
+    csrc/kzg_native.cpp, host C++): built with the machine's host compiler
+    (timed), then every method held exactly against its plain python
+    version at the main path's sizes: pack_chunks and pack_chunks_limbs of
+    NATIVE_CHUNKS chunks of NATIVE_CHUNK bytes from a seeded buffer,
+    be_to_limbs / limbs_to_be over the G1 and G2 coordinates of the BN254
+    main setup's kzg_public bytes (serial.write_setup_file), poly_encode /
+    poly_decode of the degree-4096 polynomial, hex of a proof; a short
+    buffer raises in serial.pack_chunks, pack_chunks_limbs and
+    blob.from_bytes; from_bytes -> from_blob (the limb matrix uploaded
+    without python ints) gives the device coefficients of the ints path,
+    each timed on the host ending in a synchronize; K1 must run there."""
+    import tempfile
+
+    import numpy as np
+
+    import kzg_tpu_torch as kzg
+    from kzg_tpu_torch import native
+    from kzg_tpu_torch.fields.mont import ints_to_limbs, limbs_to_ints
+    from kzg_tpu_torch.ops import cuda
+    from kzg_tpu_torch.protocol import serial
+    ts, p, _ = main_state
+    pc = kzg.init("BN254", device=dev)
+    fr = pc.ctx.fr
+    t_all = time.time()
+    cxx = native._compiler()
+    t0 = time.time()
+    so = native.build()
+    build_s = time.time() - t0
+    lib = native.lib()
+    check(lib.path == so and so.parent == native.BUILD_DIR,
+          f"native: the library loads from {native.BUILD_DIR}")
+    res = {"card": card, "compiler": " ".join(cxx), "build_s": build_s,
+           "so": os.path.relpath(so, HERE)}
+
+    def same(name, got, want, lib_ms, plain_ms):
+        eq = np.array_equal(got, want) if isinstance(got, np.ndarray) \
+            else got == want
+        check(eq, f"native {name} != its plain version")
+        res[name] = {"ms": lib_ms, "plain_ms": plain_ms, "equal": True}
+
+    # chunk packing
+    n, size = NATIVE_CHUNKS, NATIVE_CHUNK
+    nl = (size + 1) // 2
+    data = random.Random(SEED).randbytes(n * size)
+    ints, plain_ms = mean_ms(lambda: serial.pack_chunks(data, n, size))
+    got, ms = mean_ms(lambda: lib.pack_chunks(data, n, size))
+    same("pack_chunks", got, ints, ms, plain_ms)
+    want, plain_ms = mean_ms(lambda: ints_to_limbs(
+        serial.pack_chunks(data, n, size), nl))
+    got, ms = mean_ms(lambda: serial.pack_chunks_limbs(data, n, size, nl))
+    same("pack_chunks_limbs", got, want, ms, plain_ms)
+    for call in (lambda: serial.pack_chunks(data[:-1], n, size),
+                 lambda: serial.pack_chunks_limbs(data[:-1], n, size, nl),
+                 lambda: kzg.blob.from_bytes(data[:-1], 0, n * size, size)):
+        try:
+            call()
+        except ValueError as e:
+            check(str(e) == "buffer shorter than requested range",
+                  f"native short buffer: {e}")
+        else:
+            check(False, "native: a short buffer does not raise")
+    res["short_buffer_raises"] = True
+
+    # setup records: the coordinates of kzg_public's G1 and G2 records
+    cp = pc.cp
+    w = cp.modbytes
+    with tempfile.TemporaryDirectory(prefix="kzg_native_") as tmp:
+        path = os.path.join(tmp, "kzg_public")
+        serial.write_setup_file(path, ts._g1, ts._g2, cp)
+        with open(path, "rb") as f:
+            blob_bytes = f.read()
+    terms = ts._n
+    g1_len, g2_len = 5 + 2 * w, 5 + 4 * w
+    rec = np.frombuffer(blob_bytes, np.uint8, offset=8)
+    g1 = rec[:terms * g1_len].reshape(terms, g1_len)[:, 5:].tobytes()
+    g2 = rec[terms * g1_len:].reshape(terms, g2_len)[:, 5:].tobytes()
+    want_vals = {"g1": [v for pt in ts._g1 for v in pt],
+                 "g2": [v for pt in ts._g2 for c in pt for v in c]}
+    for name, coords in (("g1", g1), ("g2", g2)):
+        k = len(coords) // w
+        L = pc.ctx.fp.L
+
+        def plain_limbs():
+            return ints_to_limbs([int.from_bytes(coords[i * w:(i + 1) * w],
+                                                 "big") for i in range(k)], L)
+        want, plain_ms = mean_ms(plain_limbs)
+        check(limbs_to_ints(want) == want_vals[name],
+              f"native {name}: the records hold the setup's coordinates")
+        mat, ms = mean_ms(lambda: lib.be_to_limbs(coords, k, w, L))
+        same(f"be_to_limbs_{name}", mat, want, ms, plain_ms)
+        vals = limbs_to_ints(mat)
+        want, plain_ms = mean_ms(lambda: b"".join(
+            v.to_bytes(w, "big") for v in vals))
+        got, ms = mean_ms(lambda: lib.limbs_to_be(mat, w))
+        same(f"limbs_to_be_{name}", got, want, ms, plain_ms)
+        check(got == coords, f"native limbs_to_be_{name} != the records")
+        res[f"be_to_limbs_{name}"]["records"] = k
+
+    # the degree-4096 polynomial's stream
+    coeffs = p.coeffs
+    wr = cp.order_bytes
+    rows = np.frombuffer(b"".join(v.to_bytes(wr, "little") for v in coeffs),
+                         np.uint8).reshape(len(coeffs), wr)
+    want, plain_ms = mean_ms(lambda: serial.serialize_poly(coeffs))
+    enc, ms = mean_ms(lambda: lib.poly_encode(rows))
+    same("poly_encode", enc, want, ms, plain_ms)
+    want, plain_ms = mean_ms(lambda: serial.deserialize_poly(enc))
+    dec, ms = mean_ms(lambda: lib.poly_decode(enc, wr))
+    same("poly_decode", [int.from_bytes(r.tobytes(), "little") for r in dec],
+         want, ms, plain_ms)
+    check(np.array_equal(dec, rows), "native poly_decode != the rows")
+    res["poly_encode"]["coefficients"] = len(coeffs)
+
+    # hex of a proof
+    proof = ts.create_proof(p, 0, 1).serialize()
+    want, plain_ms = mean_ms(lambda: serial.to_hex(proof))
+    h, ms = mean_ms(lambda: lib.hex_encode(proof))
+    same("hex_encode", h, want, ms, plain_ms)
+    want, plain_ms = mean_ms(lambda: serial.from_hex(h))
+    got, ms = mean_ms(lambda: lib.hex_decode(h))
+    same("hex_decode", got, want, ms, plain_ms)
+    check(got == proof, "native hex_decode != the proof")
+
+    # from_bytes -> from_blob through the limb matrix against the ints path
+    cuda.reset_counts()
+
+    def ys_lib():
+        out = kzg.blob.from_bytes(data, 0, n * size, size)._ys(fr)
+        sync()
+        return out
+
+    def ys_ints():
+        out = fr.encode(serial.pack_chunks(data, n, size))
+        sync()
+        return out
+    ys_ints()
+    ys_lib()
+    runs = {"ys_ints": ys_ints, "ys_lib": ys_lib,
+            "from_blob_ints": lambda: kzg.poly.from_blob(kzg.blob(
+                list(enumerate(serial.pack_chunks(data, n, size))))),
+            "from_blob_lib": lambda: kzg.poly.from_blob(
+                kzg.blob.from_bytes(data, 0, n * size, size))}
+    outs = {}
+    for name in ("ys_ints", "ys_lib", "ys_lib", "ys_ints", "from_blob_ints",
+                 "from_blob_lib", "from_blob_lib", "from_blob_ints"):
+        outs[name], cold, warm = host_ms(runs[name], WARM_RUNS)
+        res.setdefault(name + "_ms", []).append(warm)
+    launches = cuda.counts()
+    check(torch.equal(fr.canon(outs["ys_lib"]), fr.canon(outs["ys_ints"])),
+          "native: the uploaded limb matrix != fr.encode of the ints")
+    a, b = outs["from_blob_lib"], outs["from_blob_ints"]
+    check(a._n == b._n == n and torch.equal(pc.fr_raw(a._dev),
+                                            pc.fr_raw(b._dev)),
+          "native: from_bytes -> from_blob != the ints path on the card")
+    check(launches["mont_mul"] > 0, "kernel mont_mul not launched on the "
+          "native path")
+    res["from_blob_chunks"] = n
+    res["launches"] = {k: v for k, v in launches.items() if v}
+    print(json.dumps({"native": res}), flush=True)
+    line("native", t_all, f"card {card}: built with {res['compiler']} in "
+         f"{build_s:.2f} s; every method == its plain version (pack "
+         f"{res['pack_chunks_limbs']['ms']:.3f} vs "
+         f"{res['pack_chunks_limbs']['plain_ms']:.3f} ms); short buffer "
+         "raises; from_bytes -> from_blob == the ints path: ys "
+         f"{min(res['ys_lib_ms']):.2f} vs {min(res['ys_ints_ms']):.2f} ms, "
+         f"from_blob {min(res['from_blob_lib_ms']):.1f} vs "
+         f"{min(res['from_blob_ints_ms']):.1f} ms")
+
+
 def _parallel_rank(rank, ranks, rdv, inputs, out):
     """One of `ranks` ranks of the parallel phase (spawned; inputs["backend"]
     over a file:// rendezvous, every rank on the card unless
@@ -1902,6 +2095,7 @@ def main():
                               "msm" + sfx: phase_msm(card, states[curve])}
     curve_paths["BN254"]["multiproof"] = phase_multiproof(
         card, states["BN254"], main_message())
+    phase_native(dev, card, states["BN254"])
     phase_cli(dev, card, states["BN254"])
     phase_demo(card)
     phase_parallel(card, states["BN254"])

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..context import CurveContext, get_context
+from ..fields.mont import limbs_to_ints
 from ..ops.poly import PolyEngine
 from ..pairing.engine import PairingEngine
 from ..refmodel.model import G1 as OracleG1, G2 as OracleG2
@@ -115,10 +116,33 @@ class _ProtocolContext:
 
 class blob:
     """Vector of (x, y) evaluation points encoding data
-    (x = chunk index + offset, y = packed chunk scalar)."""
+    (x = chunk index + offset, y = packed chunk scalar).
+
+    A blob from from_bytes holds its ys as the native library's limb matrix
+    (n_limbs, n) with its chunk offset, and uploads that matrix without
+    python ints; `data` builds the (x, y) list at first use, and from then
+    on the list (which a caller may change) is the blob."""
 
     def __init__(self, data):
-        self.data = list(data)
+        self._data = list(data)
+        self._limbs = None
+        self._offset = None
+
+    @classmethod
+    def _from_limbs(cls, limbs, offset: int) -> "blob":
+        self = cls.__new__(cls)
+        self._data = None
+        self._limbs = limbs
+        self._offset = offset
+        return self
+
+    @property
+    def data(self):
+        if self._data is None:
+            ys = limbs_to_ints(self._limbs)
+            self._data = [(self._offset + i, y) for i, y in enumerate(ys)]
+            self._limbs = None
+        return self._data
 
     def get_data(self):
         return self.data
@@ -145,15 +169,34 @@ class blob:
         chunk_length = byte_length // chunk_size
         # reference quirk kept: data is read from the START of the buffer;
         # byte_offset shifts only the x-coordinates
-        ys = serial.pack_chunks(data, chunk_length, chunk_size)
-        return blob([(chunk_offset + i, y) for i, y in enumerate(ys)])
+        limbs = serial.pack_chunks_limbs(data, chunk_length, chunk_size,
+                                         (chunk_size + 1) // 2)
+        return blob._from_limbs(limbs, chunk_offset)
+
+    def _size(self):
+        return len(self._data) if self._limbs is None else \
+            self._limbs.shape[1]
 
     def _consecutive_offset(self):
-        xs = [x for x, _ in self.data]
+        if self._limbs is not None:
+            return self._offset
+        xs = [x for x, _ in self._data]
         off = xs[0]
         if any(x != off + i for i, x in enumerate(xs)):
             raise ValueError("blob x-coordinates must be consecutive")
         return off
+
+    def _ys(self, F):
+        """The ys as a Montgomery tensor (F.L, n) of field F. The limb
+        matrix is padded with zero rows to F.L and uploaded as it is: a
+        chunk of at most MAX_CHUNK_BYTES is below r, so already canonical."""
+        if self._limbs is None:
+            return F.encode([y for _, y in self._data])
+        n_limbs, n = self._limbs.shape
+        assert n_limbs <= F.L, (n_limbs, F.L)
+        raw = np.zeros((F.L, n), dtype=np.int64)
+        raw[:n_limbs] = self._limbs
+        return F.to_mont(torch.from_numpy(raw).to(F.device))
 
 
 # --------------------------------------------------------------------------
@@ -199,11 +242,10 @@ class poly:
     @staticmethod
     def from_blob(b: blob) -> "poly":
         pc = _ctx()
-        pts = b.get_data()
-        if not pts:
+        if not b._size():
             return poly([])
         off = b._consecutive_offset()
-        ys = pc.poly.encode([y for _, y in pts])
+        ys = b._ys(pc.ctx.fr)
         off_m = pc.ctx.fr.encode([off])[..., 0]
         return poly._from_device(pc.poly.interpolate(off_m, ys))
 
@@ -438,17 +480,16 @@ class trusted_setup:
 
     def verify_proof(self, c: commit, pr: proof, expected_data: blob) -> bool:
         pc = self._pc
-        points = expected_data.get_data()
-        if len(points) < 1:
+        k = expected_data._size()
+        if k < 1:
             raise ValueError("expected_data size must be 1 or greater")
-        if len(points) >= self._n:
+        if k >= self._n:
             return False
         off = expected_data._consecutive_offset()
-        k = len(points)
         fr = pc.ctx.fr
         pe = pc.poly
         g1c = pc.ctx.g1
-        ysd = fr.encode([y for _, y in points])
+        ysd = expected_data._ys(fr)
         om = fr.encode([off])[..., 0]
         cm0 = self._g1_point_dev(c.curve_point)
         pr0 = self._g1_point_dev(pr.curve_point)

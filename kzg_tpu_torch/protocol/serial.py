@@ -1,5 +1,7 @@
-"""Byte-level codecs of the reference wire formats (pure python; counterpart
-of kzg_tpu/protocol/serial.py without its optional native helper).
+"""Byte-level codecs of the reference wire formats (counterpart of
+kzg_tpu/protocol/serial.py): pure python, except pack_chunks_limbs, which
+packs a blob's chunks through the native library (kzg_tpu_torch/native.py)
+into the limb matrix that Field tensors upload.
 
 Formats:
   * G1 point   — u32-LE length + uncompressed octet 0x04||X||Y, X/Y
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import struct
 
+from .. import native
 from ..curves.params import CurveParams
 from ..refmodel.model import G2 as OracleG2
 
@@ -197,6 +200,18 @@ def read_setup_file(path: str, cp: CurveParams):
 def pack_chunks(data: bytes, chunk_length: int, chunk_size: int) -> list:
     """First chunk_length*chunk_size bytes of `data`, chunk_size bytes per
     scalar, little-endian. Data is always read from the START of the buffer
-    — the caller pre-offsets (reference quirk)."""
+    — the caller pre-offsets (reference quirk). A buffer shorter than
+    chunk_length*chunk_size bytes raises ValueError."""
+    if len(data) < chunk_length * chunk_size:
+        raise ValueError("buffer shorter than requested range")
     return [int.from_bytes(data[i * chunk_size:(i + 1) * chunk_size], "little")
             for i in range(chunk_length)]
+
+
+def pack_chunks_limbs(data: bytes, chunk_length: int, chunk_size: int,
+                      n_limbs: int):
+    """The chunks of pack_chunks as a limb-major (n_limbs, chunk_length)
+    uint32 matrix of 16-bit limbs, packed by the native library; the same
+    ValueError on a short buffer."""
+    return native.lib().pack_chunks_limbs(data, chunk_length, chunk_size,
+                                          n_limbs)

@@ -194,24 +194,31 @@ def test_constants_equal_kzg_tpu():
 
 
 def test_imports_no_jax():
-    """In a fresh interpreter the port (with its CLI, demo launcher and
-    multi-device modules imported) commits on the CPU without loading any
-    jax module or anything of kzg_tpu."""
+    """In a fresh interpreter the port (with its CLI, demo launcher,
+    native codec library and multi-device modules imported) commits on the
+    CPU and runs blob.from_bytes -> from_blob through the native library,
+    which it builds under build/kzg_tpu_torch/ (not csrc/), without loading
+    any jax module or anything of kzg_tpu."""
     code = (
         "import sys, json\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "import kzg_tpu_torch as kzg\n"
-        "import kzg_tpu_torch.cli, kzg_tpu_torch.demo\n"
+        "import kzg_tpu_torch.cli, kzg_tpu_torch.demo, kzg_tpu_torch.native\n"
         "import kzg_tpu_torch.parallel.distributed\n"
         "import kzg_tpu_torch.parallel.sharded, kzg_tpu_torch.parallel.ntt\n"
         "kzg.init('BN254', device='cpu')\n"
         f"ts = kzg.trusted_setup({SETUP_FILE!r})\n"
         "p = kzg.poly.from_blob(kzg.blob.from_string('hi'))\n"
         "c = ts.create_commit(p)\n"
+        "b = kzg.blob.from_bytes(bytes(range(62)), 31, 62, 31)\n"
+        "q = kzg.poly.from_blob(b)\n"
+        "so = str(kzg_tpu_torch.native.lib().path)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kzg_tpu'))\n"
-        "print(json.dumps({'bad': bad, 'commit': c.serialize().hex()}))\n")
+        "print(json.dumps({'bad': bad, 'commit': c.serialize().hex(), "
+        "'so': so, 'matrix': b._limbs is not None, "
+        "'coeffs': [str(v) for v in q.coeffs]}))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"          # beside the other test workers
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -220,3 +227,13 @@ def test_imports_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert len(bytes.fromhex(res["commit"])) == 4 + 2 * 32 + 1
+    so = os.path.realpath(res["so"])
+    assert os.path.dirname(so) == os.path.realpath(
+        os.path.join(ROOT, "build", "kzg_tpu_torch"))
+    assert not so.startswith(os.path.realpath(os.path.join(ROOT, "csrc")))
+    ys = [int.from_bytes(bytes(range(31)), "little"),
+          int.from_bytes(bytes(range(31, 62)), "little")]
+    assert res["matrix"] and len(res["coeffs"]) == 2
+    slope = (ys[1] - ys[0]) % get_curve("BN254").r
+    assert [int(v) for v in res["coeffs"]] == [
+        (ys[0] - slope) % get_curve("BN254").r, slope]
