@@ -34,7 +34,8 @@ mismatch or exception exits non-zero before the result line):
                inputs reach the G1 add's widest product operands (12 x 247
                p with limbs up to 786,420, times ~248 p), and the 17-limb
                K1 on BLS12-381's Fr; K2-K6 at 25 limbs (K2's products reach
-               ~2964 p, checked on the plain schedule's statistics); and on
+               ~2964 p, checked on the plain schedule's statistics; K4 and
+               K5 on both executors, split and lane, at every check); and on
                BN158: K1 at 11 limbs on Fp and Fr, with lanes at the G1
                add's widest operands (~186 p times ~186 p) and at the G2
                Karatsuba's (8 (c0 + c1) of qnr = 5 products, limbs up to
@@ -125,7 +126,11 @@ mismatch or exception exits non-zero before the result line):
                bound)); K1 in both variants (team_ms, lane_ms, `ships`: the
                one the width rule picks, which ms is) beside floor_ms, an
                empty kernel's launch on the shipped variant's grid, and the
-               lane-team variant must have run on each main path; K6 also
+               lane-team variant must have run on each main path; K4 and
+               K5 at 25 limbs likewise in both variants (split_ms,
+               lane_ms, ships, floor_ms; each variant an entry of the
+               kernels line with its own launches, and the split executor
+               must have run); K6 also
                timed from a merge level's stride-2 halves, the wrapper's
                copies included (halves_ms, halves_path_ms).
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -141,6 +146,7 @@ import json
 import math
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -388,6 +394,32 @@ def fresh_points(G, A, what):
 # phases
 # ----------------------------------------------------------------------
 
+def kernel_name(mangled):
+    """The name of a kernel from its mangled name (namespace dropped, an
+    integer template argument kept): _ZN3kzg19g2_add_split_kernelILi16EE...
+    -> g2_add_split_kernel<16>."""
+    rest = mangled[2:].removeprefix("N")
+    name = ""
+    while (m := re.match(r"\d+", rest)):
+        n = int(m.group())
+        name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    arg = re.match(r"ILi(\d+)E", rest)
+    return name + (f"<{arg.group(1)}>" if arg else "")
+
+
+def ptxas_lines(log):
+    """nvcc's ptxas report in a build's log: each kernel's name before its
+    stack, spill and register lines."""
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (_Z\w+)", ln)
+        if m:
+            out.append(kernel_name(m.group(1)))
+        elif "registers" in ln or "spill" in ln or "stack" in ln:
+            out.append(ln.strip())
+    return out
+
+
 def phase_build():
     from kzg_tpu_torch.ops import cuda
     t0 = time.time()
@@ -395,10 +427,8 @@ def phase_build():
     card = smi()
     for L in cuda.LIMBS:
         for name in cuda.SOURCES:
-            for ln in cuda.build_log(name, L).splitlines():
-                if "registers" in ln or "spill" in ln or "stack" in ln:
-                    print(f"[build] {cuda.kernel_key(name, L)}: "
-                          f"{ln.strip()}")
+            for ln in ptxas_lines(cuda.build_log(name, L)):
+                print(f"[build] {cuda.kernel_key(name, L)}: {ln}")
     line("build", t0, "nvcc sm_90a built in parallel, seconds to each "
          f"finish: { {k: round(v, 1) for k, v in secs.items()} }; card: "
          f"{card}")
@@ -570,30 +600,37 @@ def phase_kernels(dev, errs, curve="BN254"):
         t0 = time.time()
         P, Q, pts_p, pts_q, og = inputs(ctx, lanes, rng)
         sample = rng.sample(range(lanes), 16) + list(range(8))
-        k = add(G, P, Q)
-        fresh_points(G, k, kadd)
-        got = G.unpack_affine(same_points(G, k, G._add_plain(P, Q),
-                                          f"{kadd}", kadd, errs))
-        for i in sample:
-            check(got[i] == og.add(pts_p[i], pts_q[i]),
-                  f"{kadd} lane {i} vs oracle")
+        summed = G._add_plain(P, Q)
         mask = torch.rand(lanes, generator=gen, device=dev) < 0.3
-        k = add(G, P, Q, mask)
-        fresh_points(G, k, f"{kadd} reset")
-        same_points(G, k, G.select(mask, Q, G._add_plain(P, Q)),
-                    f"{kadd} reset mask", kadd, errs)
+        chains = {}
         for times in (1, 8):
-            k = dbl(G, P, times)
-            fresh_points(G, k, kdbl)
-            ref = P
+            chains[times] = P
             for _ in range(times):
-                ref = G._dbl_plain(ref)
-            got = G.unpack_affine(same_points(G, k, ref,
-                                              f"{kdbl} times={times}", kdbl,
+                chains[times] = G._dbl_plain(chains[times])
+        variants = g2_variants(G)
+        for forced in variants:        # K4/K5 at 25 limbs: both executors
+            kw = team_kw(forced)
+            v = "" if forced is None else f" team={forced}"
+            k = add(G, P, Q, **kw)
+            fresh_points(G, k, kadd + v)
+            got = G.unpack_affine(same_points(G, k, summed, kadd + v, kadd,
                                               errs))
             for i in sample:
-                check(got[i] == og.mul(1 << times, pts_p[i]),
-                      f"{kdbl} times={times} lane {i} vs oracle")
+                check(got[i] == og.add(pts_p[i], pts_q[i]),
+                      f"{kadd}{v} lane {i} vs oracle")
+            k = add(G, P, Q, mask, **kw)
+            fresh_points(G, k, f"{kadd}{v} reset")
+            same_points(G, k, G.select(mask, Q, summed),
+                        f"{kadd}{v} reset mask", kadd, errs)
+            for times in (1, 8):
+                k = dbl(G, P, times, **kw)
+                fresh_points(G, k, kdbl + v)
+                got = G.unpack_affine(same_points(
+                    G, k, chains[times], f"{kdbl}{v} times={times}", kdbl,
+                    errs))
+                for i in sample:
+                    check(got[i] == og.mul(1 << times, pts_p[i]),
+                          f"{kdbl}{v} times={times} lane {i} vs oracle")
         # the largest product inputs of the add's schedule on these lanes
         stats = {}
         team.plain_add(G, {c: v[..., :64] for c, v in P.items()},
@@ -604,10 +641,12 @@ def phase_kernels(dev, errs, curve="BN254"):
         widest = (f"; the add's product inputs reach "
                   f"{stats['value'] / p:.1f} p, limbs {stats['limb']}, a b "
                   f"= {stats['ab'] / (p << (16 * L)):.4f} R p")
+        both = (" on both executors (split and lane)"
+                if len(variants) == 2 else "")
         line("kernels", t0, f"{kadd} (with/without reset mask) and {kdbl} "
-             f"(times 1, 8) == plain as canonical affine points over {lanes} "
-             "lanes incl. infinity/doubling/negation; outputs exact 16-bit, "
-             f"< 1.1p; 24 lanes vs oracle{widest}")
+             f"(times 1, 8){both} == plain as canonical affine points over "
+             f"{lanes} lanes incl. infinity/doubling/negation; outputs exact "
+             f"16-bit, < 1.1p; 24 lanes vs oracle{widest}")
         edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs)
 
         # K6 on the same group: aR, bL = P, Q; aL, bR a second pair
@@ -657,36 +696,45 @@ def edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs):
     L = G.F.base.L if G.is_fp2 else G.F.L
     kadd = cuda.kernel_key(f"{grp}_add", L)
     kdbl = cuda.kernel_key(f"{grp}_dbl", L)
+    variants = g2_variants(G)
     for n in EDGE_LANES:
         Pn = {k: v[..., :n].contiguous() for k, v in P.items()}
         Qn = {k: v[..., :n].contiguous() for k, v in Q.items()}
-        what = f"{kadd} lanes={n}"
-        k = add(G, Pn, Qn)
-        fresh_points(G, k, what)
-        got = G.unpack_affine(same_points(G, k, G._add_plain(Pn, Qn), what,
-                                          kadd, errs))
-        for i in range(min(n, 8)):
-            check(got[i] == og.add(pts_p[i], pts_q[i]), f"{what} lane {i} "
-                  "vs oracle")
+        summed = G._add_plain(Pn, Qn)
         mask = torch.rand(n, generator=gen, device=P["x"].device) < 0.5
-        k = add(G, Pn, Qn, mask)
-        fresh_points(G, k, f"{what} reset")
-        same_points(G, k, G.select(mask, Qn, G._add_plain(Pn, Qn)),
-                    f"{what} reset mask", kadd, errs)
+        chains = {}
         for times in (1, 8):
-            what = f"{kdbl} lanes={n} times={times}"
-            k = dbl(G, Pn, times)
-            fresh_points(G, k, what)
-            ref = Pn
+            chains[times] = Pn
             for _ in range(times):
-                ref = G._dbl_plain(ref)
-            got = G.unpack_affine(same_points(G, k, ref, what, kdbl, errs))
+                chains[times] = G._dbl_plain(chains[times])
+        for forced in variants:
+            kw = team_kw(forced)
+            v = "" if forced is None else f" team={forced}"
+            what = f"{kadd}{v} lanes={n}"
+            k = add(G, Pn, Qn, **kw)
+            fresh_points(G, k, what)
+            got = G.unpack_affine(same_points(G, k, summed, what, kadd,
+                                              errs))
             for i in range(min(n, 8)):
-                check(got[i] == og.mul(1 << times, pts_p[i]),
-                      f"{what} lane {i} vs oracle")
+                check(got[i] == og.add(pts_p[i], pts_q[i]), f"{what} lane "
+                      f"{i} vs oracle")
+            k = add(G, Pn, Qn, mask, **kw)
+            fresh_points(G, k, f"{what} reset")
+            same_points(G, k, G.select(mask, Qn, summed),
+                        f"{what} reset mask", kadd, errs)
+            for times in (1, 8):
+                what = f"{kdbl}{v} lanes={n} times={times}"
+                k = dbl(G, Pn, times, **kw)
+                fresh_points(G, k, what)
+                got = G.unpack_affine(same_points(G, k, chains[times], what,
+                                                  kdbl, errs))
+                for i in range(min(n, 8)):
+                    check(got[i] == og.mul(1 << times, pts_p[i]),
+                          f"{what} lane {i} vs oracle")
+    both = " on both executors (split and lane)" if len(variants) == 2 else ""
     line("kernels", t0, f"{kadd} (with/without reset mask) and {kdbl} (times "
-         f"1, 8) == plain at edge widths {EDGE_LANES} lanes; outputs exact "
-         "16-bit, < 1.1p; first 8 lanes vs oracle")
+         f"1, 8){both} == plain at edge widths {EDGE_LANES} lanes; outputs "
+         "exact 16-bit, < 1.1p; first 8 lanes vs oracle")
 
 
 def halves(aL, aR, bL, bR, sing, batch):
@@ -1725,6 +1773,23 @@ def point_muls(G):
     return 1, 12 + 2 * b3_mul, 9 + b3_mul
 
 
+def g2_variants(G):
+    """The variants that K4/K5 of G's group are held and timed on: (True,
+    False), the split and the lane executor, where the width rule has a
+    split layout at the base field's limb count (BLS12-381's 25 limbs),
+    else (None,), the one executor."""
+    from kzg_tpu_torch.ops import cuda
+    if G.is_fp2 and G.F.base.L in cuda.G2_TEAM_BELOW["g2_add"]:
+        return (True, False)
+    return (None,)
+
+
+def team_kw(team):
+    """The wrapper's keyword that forces a K4/K5 variant (none: the width
+    rule)."""
+    return {} if team is None else {"team": team}
+
+
 def merge_inputs(base_p, base_q, lanes, gen):
     """K6's operands over `lanes` lanes: aR, bL the two batches tiled, aL,
     bR the same tiled and rolled, and random masks fuse, asing, bsing."""
@@ -1803,7 +1868,12 @@ def sweep(paths, ctx, bases, bound, errs, gen):
     canonical affine points), then its device time per launch (kernel_ms)
     and bound; per path, path_ms = sum over shapes of the path's launches x
     ms, and gap_ms the same of ms - bound_ms. bases: {group: (curve, P,
-    Q)}. An add moves 9 coordinates, a chain 6 (K6: merge_sweep)."""
+    Q)}. An add moves 9 coordinates, a chain 6 (K6: merge_sweep). K4/K5 at
+    25 limbs in both variants (g2_variants): split_ms and lane_ms, each the
+    median of three kernel_ms taken in turns, ms and `ships` the one the
+    width rule picks, floor_ms an empty kernel on its grid; per path also
+    lane_path_ms (every launch on the lane executor), floor_ms and the
+    launches of each variant."""
     from kzg_tpu_torch.ops import cuda
     res = {}
     L = ctx.fp.L
@@ -1813,46 +1883,75 @@ def sweep(paths, ctx, bases, bound, errs, gen):
         G, base_p, base_q = bases[grp]
         comps, add_muls, dbl_muls = point_muls(G)
         kadd, kdbl = getattr(cuda, f"{grp}_add"), getattr(cuda, f"{grp}_dbl")
+        variants = g2_variants(G)
         keys = sorted({key for _, shp in paths.values()
                        for key in shp.get(name, {})},
                       key=lambda k: k if isinstance(k, tuple) else (k,))
         rows, path_ms = [], dict.fromkeys(paths, 0.0)
+        sums = {k: dict.fromkeys(paths, 0.0)
+                for k in ("lane_path_ms", "floor_ms")}
+        by_variant = {v: dict.fromkeys(paths, 0) for v in ("split", "lane")}
         for key in keys:
             lanes, times = key if isinstance(key, tuple) else (key, None)
             P, Q = tiled(base_p, lanes), tiled(base_q, lanes)
             if times is None:
-                def kern():
-                    return kadd(G, P, Q)
+                def kern(team=None):
+                    return kadd(G, P, Q, **team_kw(team))
 
                 def plain():
                     return G._add_plain(P, Q)
             else:
-                def kern():
-                    return kdbl(G, P, times)
+                def kern(team=None):
+                    return kdbl(G, P, times, **team_kw(team))
 
                 def plain():
                     R = P
                     for _ in range(times):
                         R = G._dbl_plain(R)
                     return R
-            a, b = G.affine_packed(kern()), G.affine_packed(plain())
-            err = (a - b).abs().max().item()
-            errs[name] = max(errs[name], err)
-            check(err == 0, f"{name} at {key}: kernel != plain (max {err})")
-            ms = kernel_ms(kern)
+            want = G.affine_packed(plain())
+            err = 0
+            for team in variants:
+                e = (G.affine_packed(kern(team)) - want).abs().max().item()
+                err = max(err, e)
+                errs[name] = max(errs[name], e)
+                check(e == 0, f"{name} team={team} at {key}: kernel != plain "
+                      f"(max {e})")
             by_path = {path: shp.get(name, {}).get(key, 0)
                        for path, (_, shp) in paths.items()}
-            for path, n in by_path.items():
-                path_ms[path] += n * ms
             b, by = bound(*point_work(L, comps, 9 if times is None else 6,
                                       add_muls if times is None
                                       else dbl_muls * times,
                                       lanes))
-            rows.append({"lanes": lanes, "times": times,
-                         "launches_by_path": by_path, "ms": ms,
-                         "bound_ms": b, "bound_by": by, "max_abs_err": err})
+            row = {"lanes": lanes, "times": times,
+                   "launches_by_path": by_path}
+            if len(variants) == 1:
+                row["ms"] = kernel_ms(kern)
+            else:
+                runs = {True: [], False: []}
+                for _ in range(3):
+                    for team in variants:
+                        runs[team].append(kernel_ms(lambda: kern(team)))
+                ms = {team: statistics.median(v) for team, v in runs.items()}
+                ships = cuda.g2_uses_team(kname, L, lanes)
+                grid = cuda.g2_grid(kname, L, lanes)
+                floor = kernel_ms(lambda: cuda.empty_launch(*grid))
+                row.update(ships="split" if ships else "lane", ms=ms[ships],
+                           split_ms=ms[True], lane_ms=ms[False],
+                           floor_ms=floor)
+                for path, n in by_path.items():
+                    sums["lane_path_ms"][path] += n * ms[False]
+                    sums["floor_ms"][path] += n * floor
+                    by_variant[row["ships"]][path] += n
+            for path, n in by_path.items():
+                path_ms[path] += n * row["ms"]
+            row.update(bound_ms=b, bound_by=by, max_abs_err=err)
+            rows.append(row)
         res[name] = {"shapes": rows, "path_ms": path_ms,
                      "gap_ms": gaps(rows, paths)}
+        if len(variants) == 2:
+            res[name].update(team_below=cuda.G2_TEAM_BELOW[kname][L], **sums,
+                             launches_by_variant=by_variant)
     for grp in ("g1", "g2"):
         res[cuda.kernel_key(f"merge_combine_{grp}", L)] = merge_sweep(
             paths, ctx, *bases[grp], bound, errs, gen)
@@ -1935,10 +2034,11 @@ def phase_kernel_line(dev, curve_paths, errs):
     out = []
 
     def entry(name, key, on, kernel_fn, plain_fn, canon, nbytes, ops,
-              shape):
+              shape, by_path=None, **extra):
         """Hold the kernel (launch counter `key`, counted on the paths
-        `on`) against its plain version at this shape (exact canonical
-        equality), then time both."""
+        `on`; `by_path`: a variant's launches instead) against its plain
+        version at this shape (exact canonical equality), then time
+        both."""
         k = cuda.KERNELS[key]
         a, b = canon(kernel_fn()), canon(plain_fn())
         err = (a - b).abs().max().item()
@@ -1947,14 +2047,43 @@ def phase_kernel_line(dev, curve_paths, errs):
         ms = kernel_ms(kernel_fn)
         plain = event_ms(plain_fn, iters=3)
         b, by = bound(nbytes, ops)
-        by_path = {path: lc[key] for path, (lc, _) in on.items()}
+        if by_path is None:
+            by_path = {path: lc[key] for path, (lc, _) in on.items()}
         out.append({"name": name, "route": "cuda", "source": k.source,
                     "replaces": k.replaces, "limbs": k.limbs,
                     "launches": sum(by_path.values()),
                     "launches_by_path": by_path,
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                     "bound_ms": b, "bound_by": by, "library_ms": None,
-                    "shape": shape, "event_ms": event_ms(kernel_fn)})
+                    "shape": shape, "event_ms": event_ms(kernel_fn),
+                    **extra})
+
+    def variant_entries(Gc, key, lanes_of, kernel_fn, plain_fn, work,
+                        shape_of, shapes):
+        """K4 or K5 (launch counter `key`) in each variant at 25 limbs: an
+        entry named key (the lane executor) and key + " split", each at the
+        heaviest shape the width rule gave that variant (the heaviest of all
+        where it got none), with that variant's launches per path; the
+        split executor must have run on the paths."""
+        kname = key.split("@")[0]
+        L = Gc.F.base.L
+        for team in (True, False):
+            mine = {k: n for k, n in shapes[key].items()
+                    if cuda.g2_uses_team(kname, L, lanes_of(k)) == team}
+            by_path = {path: sum(n for k, n in shp.get(key, {}).items()
+                                 if cuda.g2_uses_team(kname, L, lanes_of(k))
+                                 == team)
+                       for path, (_, shp) in on.items()}
+            shp = heaviest(mine or shapes[key])
+            variant = "split" if team else "lane"
+            if team:
+                check(sum(by_path.values()) > 0, f"{key}: the split "
+                      "executor not launched on the paths")
+            entry(key + (" split" if team else ""), key, on,
+                  kernel_fn(shp, team), plain_fn(shp), Gc.affine_packed,
+                  *work(shp), shape_of(shp), by_path=by_path,
+                  variant=variant,
+                  team_below=cuda.G2_TEAM_BELOW[kname][L])
 
     def packed_all(G):
         def canon(pts):
@@ -2003,26 +2132,50 @@ def phase_kernel_line(dev, curve_paths, errs):
             kdbl = getattr(cuda, f"{grp}_dbl")
             base_p, base_q, _, _, _ = inputs(ctx, K23_LANES, rng)
             bases[grp] = (Gc, base_p, base_q)
-            lanes = heaviest(shapes[add])
-            P, Q = tiled(base_p, lanes), tiled(base_q, lanes)
-            entry(add, add, on, lambda: kadd(Gc, P, Q),
-                  lambda: Gc._add_plain(P, Q), Gc.affine_packed,
-                  *point_work(L, comps, 9, add_muls, lanes),
-                  {"lanes": lanes})
 
-            lanes, times = heaviest(shapes[dbl])
-            P = tiled(base_p, lanes)
+            def add_fn(lanes, team=None):
+                P, Q = tiled(base_p, lanes), tiled(base_q, lanes)
+                return lambda: kadd(Gc, P, Q, **team_kw(team))
 
-            def chain():
-                R = P
-                for _ in range(times):
-                    R = Gc._dbl_plain(R)
-                return R
+            def add_plain(lanes):
+                P, Q = tiled(base_p, lanes), tiled(base_q, lanes)
+                return lambda: Gc._add_plain(P, Q)
 
-            entry(dbl, dbl, on, lambda: kdbl(Gc, P, times), chain,
-                  Gc.affine_packed,
-                  *point_work(L, comps, 6, dbl_muls * times, lanes),
-                  {"lanes": lanes, "times": times})
+            def dbl_fn(shape, team=None):
+                P = tiled(base_p, shape[0])
+                return lambda: kdbl(Gc, P, shape[1], **team_kw(team))
+
+            def chain(shape):
+                P = tiled(base_p, shape[0])
+
+                def run():
+                    R = P
+                    for _ in range(shape[1]):
+                        R = Gc._dbl_plain(R)
+                    return R
+                return run
+
+            def add_work(lanes):
+                return point_work(L, comps, 9, add_muls, lanes)
+
+            def dbl_work(shape):
+                return point_work(L, comps, 6, dbl_muls * shape[1], shape[0])
+
+            if len(g2_variants(Gc)) == 2:
+                variant_entries(Gc, add, lambda k: k, add_fn, add_plain,
+                                add_work, lambda k: {"lanes": k}, shapes)
+                variant_entries(Gc, dbl, lambda k: k[0], dbl_fn, chain,
+                                dbl_work,
+                                lambda k: {"lanes": k[0], "times": k[1]},
+                                shapes)
+            else:
+                lanes = heaviest(shapes[add])
+                entry(add, add, on, add_fn(lanes), add_plain(lanes),
+                      Gc.affine_packed, *add_work(lanes), {"lanes": lanes})
+                shape = heaviest(shapes[dbl])
+                entry(dbl, dbl, on, dbl_fn(shape), chain(shape),
+                      Gc.affine_packed, *dbl_work(shape),
+                      {"lanes": shape[0], "times": shape[1]})
 
             name = cuda.kernel_key(f"merge_combine_{grp}", L)
             lanes = heaviest(shapes[name])

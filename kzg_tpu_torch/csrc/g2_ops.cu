@@ -25,17 +25,28 @@
 // chains), where one lane's serial chain of products sets the time: 48 per
 // add and 222 per chain of 8 when one thread owns a lane.
 //
-// Design (team.cuh, shared with K2/K3): each lane is owned by a team of T
-// threads of one warp (T and the warps per block come with the schedule
-// table, kzg_tpu_torch/ops/team.py). The point, the constants and every
+// Design (team.cuh, shared with K2/K3 and K6): each lane is owned by a
+// team of threads (its layout comes with the schedule table,
+// kzg_tpu_torch/ops/team.py). The point, the constants and every
 // intermediate live in the block's shared memory; the formula runs as
-// levels of independent instructions spread over the team, each product
-// an inlined L x L Montgomery product on operands in registers. A lane's
-// chain falls to the product rounds of its schedule (team.rounds: 7 per
-// add and 4 per doubling at T = 8), and no operand goes through a local
-// stack frame. Outputs are re-reduced: exact 16-bit limbs, each component
-// < 1.1 p. K6 (msm_merge.cu) runs the same add schedule on the same
-// executor.
+// levels of independent instructions spread over the team, and no operand
+// goes through a local stack frame. Two variants, picked by width
+// (ops/cuda.py G2_TEAM_BELOW, per kernel and limb count):
+//   lane (from the rule up, and at every width at 17 and 11 limbs): teams
+//        of T threads of one warp, each product an inlined L x L
+//        Montgomery product on operands in registers; a lane's chain falls
+//        to the product rounds of its schedule (team.rounds: 7 per add and
+//        4 per doubling at T = 8), a whole 25-limb product a round (~7 us);
+//   split (below the rule, BLS12-381's 25 limbs): each product of a level
+//        split by columns over a sub-team of R ranks (mont.cuh's split
+//        product, K1's lane teams), P products a round, the lane's team R
+//        x P threads: one warp, or a whole block meeting at
+//        __syncthreads(); the schedule leveled for P products a round
+//        (team.rounds: 5 per add and 3 per doubling at P = 16), a linear
+//        instruction a warp, a lane a limb. A round costs ~2 us: a 1-lane
+//        add ~0.018 ms against ~0.053 ms on the lane executor (PERF.md).
+// Outputs are re-reduced: exact 16-bit limbs, each component < 1.1 p. K6
+// (msm_merge.cu) runs the same add schedule on the lane executor.
 #include "team.cuh"
 
 namespace kzg {
@@ -84,6 +95,56 @@ g2_dbl_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
   team_store(out, O_FRESH, 6, t, lanes);
 }
 
+// The split variants: the same loads, schedules and stores on the split
+// executor, R ranks a product; a lane's base elements are loaded and its
+// outputs stored limb by limb over the whole team.
+template <int R>
+__global__ void __launch_bounds__(SPLIT_MAX_THREADS)
+g2_add_split_kernel(const int64_t* __restrict__ px,
+                    const int64_t* __restrict__ py,
+                    const int64_t* __restrict__ pz,
+                    const int64_t* __restrict__ qx,
+                    const int64_t* __restrict__ qy,
+                    const int64_t* __restrict__ qz,
+                    const uint8_t* __restrict__ reset,
+                    int64_t* __restrict__ out, int64_t lanes, Mod M) {
+  TeamLane t;
+  if (!split_setup(t, lanes, K_ADD, M)) return;
+  const bool rst = reset != nullptr && reset[t.i];
+  const int e0 = rst ? 6 : 0;
+  for (int x = t.rank; x < (12 - e0) * L; x += t.team) {
+    const int e = e0 + x / L, k = x % L, c = e >> 1;
+    const int64_t* src = c == 0 ? px : c == 1 ? py : c == 2 ? pz
+                       : c == 3 ? qx : c == 4 ? qy : qz;
+    team_sm[slot_word(t, (uint32_t)e, k)] =
+        (uint32_t)src[((int64_t)(e & 1) * L + k) * lanes + t.i];
+  }
+  split_sync(t);
+  split_run<R>(rst ? S_RESET : S_ADD, t, M);
+  split_store(out, rst ? O_RESET : O_ADD, 6, t, lanes);
+}
+
+template <int R>
+__global__ void __launch_bounds__(SPLIT_MAX_THREADS)
+g2_dbl_split_kernel(const int64_t* __restrict__ px,
+                    const int64_t* __restrict__ py,
+                    const int64_t* __restrict__ pz,
+                    int64_t* __restrict__ out, int64_t lanes, int times,
+                    Mod M) {
+  TeamLane t;
+  if (!split_setup(t, lanes, K_DBL, M)) return;
+  for (int x = t.rank; x < 6 * L; x += t.team) {
+    const int e = x / L, k = x % L, c = e >> 1;
+    const int64_t* src = c == 0 ? px : c == 1 ? py : pz;
+    team_sm[slot_word(t, (uint32_t)e, k)] =
+        (uint32_t)src[((int64_t)(e & 1) * L + k) * lanes + t.i];
+  }
+  split_sync(t);
+  for (int step = 0; step <= times; ++step)
+    split_run<R>(step < times ? S_DBL : S_FRESH, t, M);
+  split_store(out, O_FRESH, 6, t, lanes);
+}
+
 }  // namespace kzg
 
 // P, Q coordinates: int64[2, n_limbs, lanes] contiguous on the card; reset:
@@ -124,4 +185,44 @@ extern "C" int kzg_g2_dbl(const int64_t* px, const int64_t* py,
         g2_dbl_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
             px, py, pz, out, lanes, times, M);
       });
+}
+
+// The split variants of both, same arguments; consts: K1's modulus words
+// then the split block (ops/cuda.py _g2_consts(G, split=True)), whose
+// layout words name R (8, 16 or 32) and the team. Returns as above.
+extern "C" int kzg_g2_add_split(const int64_t* px, const int64_t* py,
+                                const int64_t* pz, const int64_t* qx,
+                                const int64_t* qy, const int64_t* qz,
+                                const uint8_t* reset, int64_t* out,
+                                int64_t lanes, const uint32_t* consts,
+                                int n_limbs, void* stream) {
+  using namespace kzg;
+  if (n_limbs != L) return BAD_LIMBS;
+  static size_t attrs[3] = {0, 0, 0};
+  static const void* const kernels[3] = {
+      (const void*)g2_add_split_kernel<8>,
+      (const void*)g2_add_split_kernel<16>,
+      (const void*)g2_add_split_kernel<32>};
+  Mod M = mod_from_host(consts);
+  void* args[] = {&px, &py, &pz, &qx, &qy, &qz, &reset, &out, &lanes, &M};
+  return split_launch(consts + CONST_WORDS, K_ADD, kernels, attrs, lanes,
+                      stream, args);
+}
+
+extern "C" int kzg_g2_dbl_split(const int64_t* px, const int64_t* py,
+                                const int64_t* pz, int64_t* out,
+                                int64_t lanes, int times,
+                                const uint32_t* consts, int n_limbs,
+                                void* stream) {
+  using namespace kzg;
+  if (n_limbs != L) return BAD_LIMBS;
+  static size_t attrs[3] = {0, 0, 0};
+  static const void* const kernels[3] = {
+      (const void*)g2_dbl_split_kernel<8>,
+      (const void*)g2_dbl_split_kernel<16>,
+      (const void*)g2_dbl_split_kernel<32>};
+  Mod M = mod_from_host(consts);
+  void* args[] = {&px, &py, &pz, &out, &lanes, &times, &M};
+  return split_launch(consts + CONST_WORDS, K_DBL, kernels, attrs, lanes,
+                      stream, args);
 }

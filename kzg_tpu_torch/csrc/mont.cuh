@@ -139,6 +139,158 @@ __device__ __forceinline__ void fe_fresh(Fe& o, const Fe& a, const Mod& M) {
   mont_mul(o, a, one, M);
 }
 
+// ----------------------------------------------------------------------
+// The split product: one Montgomery product a b R^-1 computed by a team of
+// T threads (*ranks*, T dividing 32) of one warp, K1's lane-team variant
+// (mont_mul.cu) and the split executor of the point kernels (team.cuh).
+// Rank r owns product columns [r C, r C + C), C = ceil(2 L / T), and
+// accumulates them in 64-bit registers over a sliding window of b; in
+// reduction round i the owner of column i takes m_i and its carry. Inside
+// its range it adds both into its column i + 1 at once, so its chain of
+// rounds waits on no shuffle, and m_i reaches the other columns one round
+// later; at the end of its range m_i and the carry go to every rank in one
+// 64-bit shuffle. Then each rank that owns high columns normalizes them;
+// its carry moves into the next rank's digits in one to three shuffles
+// until every carry is 0 or 1, and a carry-lookahead over two ballots
+// settles the rest. kzg_tpu_torch/ops/k1_team.py models it on the CPU;
+// the output is limb for limb mont_mul's.
+// ----------------------------------------------------------------------
+
+template <int T>
+struct SplitShape {
+  static constexpr int C = (2 * L + T - 1) / T;   // columns per rank
+  static constexpr int W = L + C;                  // a rank's window of b, p
+  static constexpr int PZ = T * C + L - 1;         // words of the padded p
+};
+
+__device__ __forceinline__ uint64_t shfl64(uint64_t v, int src) {
+  const uint32_t lo = __shfl_sync(0xFFFFFFFFu, (uint32_t)v, src);
+  const uint32_t hi = __shfl_sync(0xFFFFFFFFu, (uint32_t)(v >> 32), src);
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// Rank `rank` of a team whose rank 0 is warp lane `lead`. Every thread of
+// the warp calls it at once (its shuffles and ballots name the whole warp).
+// ar: a's L limbs; bw[z] = b_(c0 - (L - 1) + z), zero outside [0, L), c0 =
+// rank C; pw(z) = p_(c0 - (L - 1) + z) at pz[z], zero outside [0, L), for z
+// < W - 1. On return t[q] holds output limb c0 + q - L (exact 16 bits) for
+// each of the rank's columns c0 + q in [L, 2 L).
+template <int T>
+__device__ __forceinline__ void split_mul(uint64_t (&t)[SplitShape<T>::C],
+                                          const uint32_t (&ar)[L],
+                                          const uint32_t (&bw)[
+                                              SplitShape<T>::W - 1],
+                                          const uint32_t* pz, int rank,
+                                          int lead, const Mod& M) {
+  constexpr int C = SplitShape<T>::C, W = SplitShape<T>::W;
+  const int c0 = rank * C;
+
+  // product: slot q holds column c0 + q = sum_x a_x b_(c0 + q - x)
+#pragma unroll
+  for (int q = 0; q < C; ++q) t[q] = 0;
+#pragma unroll
+  for (int x = 0; x < L; ++x) {
+#pragma unroll
+    for (int q = 0; q < C; ++q) t[q] += (uint64_t)ar[x] * bw[q - x + L - 1];
+  }
+
+  // rounds: column i belongs to rank i / C, slot i % C. Inside a range
+  // the owner adds m_i p_1 + c_i to its column i + 1 at once and m_i goes
+  // round the team in a 32-bit shuffle, added (times p) into every other
+  // column one round later (lag); at a range's end (c_i << 16) | m_i goes
+  // in one 64-bit shuffle and every rank adds it at once. Slot q sees
+  // p_(c0 + q - i) in round i at pw[q - i + L - 1].
+  uint32_t pw[W - 1];
+#pragma unroll
+  for (int z = 0; z < W - 1; ++z) pw[z] = pz[z];
+  const uint32_t p0 = M.p[0], p1 = M.p[1];
+  uint32_t lag = 0;                       // m of round i - 1, in flight
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const bool owner = rank == i / C;
+    const uint64_t ti = t[i % C];        // meaningful on the owner only
+    uint32_t m = ((uint32_t)ti * M.n0) & MASK16;
+    uint64_t c = (ti + (uint64_t)m * p0) >> 16;
+    if (i > 0 && (i - 1) % C != C - 1) {  // round i - 1's m, lagged
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        // the owner of round i - 1 took its column i (slot i % C) at once
+        const uint32_t mq = (q == i % C && owner) ? 0u : lag;
+        t[q] += (uint64_t)mq * pw[q - i + L];
+      }
+    }
+    if (i % C != C - 1) {
+      // m p_1 joins column i + 1 beside the carry's chain
+      const uint64_t u = t[i % C + 1] + (uint64_t)m * p1;
+      t[i % C + 1] = owner ? u + c : t[i % C + 1];
+      lag = __shfl_sync(0xFFFFFFFFu, m, lead + i / C);
+    } else {
+      const uint64_t word = shfl64((c << 16) | m, lead + i / C);
+      m = (uint32_t)word & MASK16;
+      c = word >> 16;
+#pragma unroll
+      for (int q = 0; q < C; ++q) t[q] += (uint64_t)m * pw[q - i + L - 1];
+      if (rank == i / C + 1) t[0] += c;
+    }
+  }
+  if ((L - 1) % C != C - 1) {             // round L - 1's m, lagged
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const uint32_t mq = (q == L % C && rank == (L - 1) / C) ? 0u : lag;
+      t[q] += (uint64_t)mq * pw[q];
+    }
+  }
+
+  // high half: columns L .. 2L - 1 to 16-bit digits. Each rank normalizes
+  // its own (carry out < 2^36); NP passes move each rank's carry into the
+  // next rank's digits, until every carry is 0 or 1 (one pass when a rank
+  // holds 3 or more digits); then a carry-lookahead over the team's
+  // ballots of generate (carry 1) and propagate (digits all 0xFFFF) gives
+  // each rank its carry in. The carry out of column 2L - 1 is dropped.
+  constexpr int NP = C >= 3 ? 1 : (C == 2 ? 2 : 3);
+  uint64_t carry = 0;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    if (c0 + q >= L && c0 + q < 2 * L) {
+      const uint64_t v = t[q] + carry;
+      t[q] = v & MASK16;
+      carry = v >> 16;
+    }
+  }
+#pragma unroll
+  for (int pass = 0; pass < NP; ++pass) {
+    const uint32_t lo = __shfl_up_sync(0xFFFFFFFFu, (uint32_t)carry, 1, T);
+    const uint32_t hi =
+        __shfl_up_sync(0xFFFFFFFFu, (uint32_t)(carry >> 32), 1, T);
+    carry = rank == 0 ? 0 : ((uint64_t)hi << 32) | lo;
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      if (c0 + q >= L && c0 + q < 2 * L) {
+        const uint64_t v = t[q] + carry;
+        t[q] = v & MASK16;
+        carry = v >> 16;
+      }
+    }
+  }
+  bool ones = true;
+#pragma unroll
+  for (int q = 0; q < C; ++q)
+    if (c0 + q >= L && c0 + q < 2 * L) ones = ones && t[q] == MASK16;
+  const unsigned team = T == 32 ? 0xFFFFFFFFu : (1u << (T % 32)) - 1u;
+  const unsigned g = (__ballot_sync(0xFFFFFFFFu, carry != 0) >> lead) & team;
+  const unsigned pr = (__ballot_sync(0xFFFFFFFFu, ones) >> lead) & team;
+  const unsigned x = g | pr;
+  uint32_t cin = (((x + g) ^ x ^ g) >> rank) & 1u;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    if (c0 + q >= L && c0 + q < 2 * L) {
+      const uint32_t v = (uint32_t)t[q] + cin;
+      t[q] = v & MASK16;
+      cin = v >> 16;
+    }
+  }
+}
+
 // Host side: constants arrive as one uint32 array from the Python wrapper
 // (kzg_tpu_torch/ops/cuda.py builds it): p[L], one[L], n0.
 inline Mod mod_from_host(const uint32_t* h) {

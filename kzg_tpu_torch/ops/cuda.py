@@ -15,6 +15,9 @@ kernel, each of its call sites is here a kernel written by hand for Hopper
   K4 ``g2_add``           (csrc/g2_ops.cu)    — G2 complete add with reset
                                                 mask (T2, T4, T6, T7);
   K5 ``g2_dbl``           (csrc/g2_ops.cu)    — chain of G2 doublings (T3);
+                                                K4 and K5 on the split
+                                                executor below
+                                                G2_TEAM_BELOW lanes;
   K6 ``merge_combine_g1`` / ``merge_combine_g2`` (csrc/msm_merge.cu) — the
                           merge strategy's per-level combine (T5).
 
@@ -22,7 +25,9 @@ K2-K6 run lane teams (csrc/team.cuh) over the constant rows and schedule
 table of ops/team.py (K6 runs the add's schedule, in a layout of its own
 from team.MERGE_WIDE lanes up). A group's constant array is K1's modulus
 words (p, R mod p, n0: 2 L + 1 uint32 of the base field), then that team
-block (_g1_consts, _g2_consts).
+block (_g1_consts, _g2_consts); K4 and K5 below G2_TEAM_BELOW run the
+split executor, each product split over a sub-team of ranks, from a block
+of their own (team.split_block).
 
 The limb count L is a compile-time constant of the sources (``-DKZG_L``):
 each source compiles once per limb count it is asked for, 17 for BN254's
@@ -86,6 +91,13 @@ LIMBS = (BASE_L, 25, 11)
 # 3072 lanes and 1.01 x at 3584; at 25, 0.94 x at 5120 and 1.05 x at 5632;
 # at 11, 0.96 x at 1536 and 1.00 x at 2048)
 K1_TEAM_BELOW = {BASE_L: 3072, 25: 5120, 11: 2048}
+# K4 (g2_add) and K5 (g2_dbl, lanes whatever `times`) launches below this
+# many lanes run the split executor (layout team.SPLIT_LAYOUT), wider ones
+# the lane executor; per kernel and limb count (none: the lane executor
+# at every width), from team_sweep.py g2 on the H100 (PERF.md, run AD5:
+# K4's split executor takes 0.81 x the lane executor's time at 512 lanes
+# and 1.09 x at 768; K5's 0.83 x at 512 x 8 and 1.48 x at 1024 x 8)
+G2_TEAM_BELOW = {"g2_add": {25: 768}, "g2_dbl": {25: 1024}}
 
 
 class Kernel:
@@ -243,6 +255,8 @@ _ARGTYPES = {
     "kzg_g1_dbl": [_VP] * 4 + [_I64, _INT, _VP, _INT, _VP],
     "kzg_g2_add": [_VP] * 8 + [_I64, _VP, _INT, _VP],
     "kzg_g2_dbl": [_VP] * 4 + [_I64, _INT, _VP, _INT, _VP],
+    "kzg_g2_add_split": [_VP] * 8 + [_I64, _VP, _INT, _VP],
+    "kzg_g2_dbl_split": [_VP] * 4 + [_I64, _INT, _VP, _INT, _VP],
     "kzg_merge_combine_g1": [_VP] * 3 + [_I64, _VP, _INT, _VP],
     "kzg_merge_combine_g2": [_VP] * 3 + [_I64, _VP, _INT, _VP],
 }
@@ -331,9 +345,10 @@ def _g1_consts(G):
             + team.block(G))
 
 
-def _g2_consts(G):
+def _g2_consts(G, split=False):
     """K1's constants of the base field, then the lane-team block of
-    K4/K5/K6 (team.block). The schedules take Fp2 with qnr = -1 (BN254,
+    K4/K5/K6 (team.block), or with `split` the split executor's
+    (team.split_block). The schedules take Fp2 with qnr = -1 (BN254,
     BLS12-381) or qnr = 5 (BN158, c0 = v0 + 5 v1 lazy); other curves
     raise."""
     F2 = G.F
@@ -341,15 +356,17 @@ def _g2_consts(G):
     if not (F2.qnr_is_m1 or F2.qnr_small == 5):
         raise ValueError(f"{G.name}: the G2 kernels take qnr = -1 or 5")
     return (list(B.params.limbs) + list(B.params.one_limbs) + [B.n0]
-            + team.block(G))
+            + (team.split_block(G) if split else team.block(G)))
 
 
-def _consts(G):
-    """The constant block of G's point kernels, built once per curve."""
-    c = getattr(G, "_kernel_consts", None)
+def _consts(G, split=False):
+    """The constant block of G's point kernels (with `split`: of the split
+    K4/K5), built once per curve."""
+    attr = "_kernel_split_consts" if split else "_kernel_consts"
+    c = getattr(G, attr, None)
     if c is None:
-        c = _u32(_g2_consts(G) if G.is_fp2 else _g1_consts(G))
-        G._kernel_consts = c
+        c = _u32(_g2_consts(G, split) if G.is_fp2 else _g1_consts(G))
+        setattr(G, attr, c)
     return ctypes.cast(c, _VP)
 
 
@@ -484,7 +501,43 @@ def _unpack(out, batch):
             for i, k in enumerate(("x", "y", "z"))}
 
 
-def _point_add(name, G, P, Q, reset):
+def g2_uses_team(name, L, lanes, team=None):
+    """Whether K4 (`name` "g2_add") or K5 ("g2_dbl") runs its split
+    executor over `lanes` lanes at L limbs: below G2_TEAM_BELOW[name][L]
+    (never at a limb count without an entry), unless `team` (True or False)
+    says which."""
+    if team is None:
+        return lanes < G2_TEAM_BELOW[name].get(L, 0)
+    return team
+
+
+def _g2_layout(name, L, split):
+    """(threads per team, warps per block) of K4/K5's shipped layout on
+    the split or the lane executor."""
+    kind = 0 if name == "g2_add" else 1
+    if split:
+        return team.SPLIT_LAYOUT[L][kind][:2]
+    return team.LAYOUT["g2"][kind]
+
+
+def g2_grid(name, L, lanes, team=None):
+    """(blocks, threads per block) of K4's or K5's launch over `lanes`
+    lanes at L limbs, in the variant the width rule (or `team`) picks."""
+    split = g2_uses_team(name, L, lanes, team)
+    per, warps = _g2_layout(name, L, split)
+    lpb = 32 * warps // per if split else (32 // per) * warps
+    return -(-lanes // lpb), 32 * warps
+
+
+def _entry(name, L, lanes, team):
+    """The C entry point of point kernel `name` for this launch, and
+    whether it is the split executor's (K4/K5 by G2_TEAM_BELOW, or
+    `team`)."""
+    split = name in G2_TEAM_BELOW and g2_uses_team(name, L, lanes, team)
+    return "kzg_" + name + ("_split" if split else ""), split
+
+
+def _point_add(name, G, P, Q, reset, team=None):
     c, batch, lanes = _points(G, (P, Q), name)
     dev = c[0].device
     out = torch.empty((3,) + _lead(G) + (lanes,), dtype=torch.int64,
@@ -497,14 +550,15 @@ def _point_add(name, G, P, Q, reset):
         rptr = reset.data_ptr()
     L = _lead(G)[-1]
     kern = KERNELS[kernel_key(name, L)]
-    fn = getattr(_lib(kern.lib, L), "kzg_" + name)
+    entry, split = _entry(name, L, lanes, team)
+    fn = getattr(_lib(kern.lib, L), entry)
     _check(fn(*[t.data_ptr() for t in c], rptr, out.data_ptr(), lanes,
-              _consts(G), L, _stream()), name)
+              _consts(G, split), L, _stream()), name)
     kern.count(lanes)
     return _unpack(out, batch)
 
 
-def _point_dbl(name, G, P, times):
+def _point_dbl(name, G, P, times, team=None):
     if times < 1:
         raise ValueError(f"{name}: times must be >= 1")
     c, batch, lanes = _points(G, (P,), name)
@@ -514,9 +568,10 @@ def _point_dbl(name, G, P, times):
         return _unpack(out, batch)
     L = _lead(G)[-1]
     kern = KERNELS[kernel_key(name, L)]
-    fn = getattr(_lib(kern.lib, L), "kzg_" + name)
+    entry, split = _entry(name, L, lanes, team)
+    fn = getattr(_lib(kern.lib, L), entry)
     _check(fn(*[t.data_ptr() for t in c], out.data_ptr(), lanes, int(times),
-              _consts(G), L, _stream()), name)
+              _consts(G, split), L, _stream()), name)
     kern.count((lanes, int(times)))
     return _unpack(out, batch)
 
@@ -533,16 +588,20 @@ def g1_dbl(G, P, times):
     return _point_dbl("g1_dbl", G, P, times)
 
 
-def g2_add(G, P, Q, reset=None):
+def g2_add(G, P, Q, reset=None, team=None):
     """K4: out = reset ? Q : P + Q per lane (complete add), G2 point dicts
     of (2, L, *batch) int64 coordinates on the card; reset is a bool tensor
-    of the batch shape or None."""
-    return _point_add("g2_add", G, P, Q, reset)
+    of the batch shape or None. The split executor below
+    G2_TEAM_BELOW["g2_add"][L] lanes, the lane executor from there up;
+    `team` True or False forces one (for timing both; True raises at a
+    limb count without a split layout). Either counts under K4's key."""
+    return _point_add("g2_add", G, P, Q, reset, team)
 
 
-def g2_dbl(G, P, times):
-    """K5: 2^times P per lane, G2 point dict on the card."""
-    return _point_dbl("g2_dbl", G, P, times)
+def g2_dbl(G, P, times, team=None):
+    """K5: 2^times P per lane, G2 point dict on the card; the variant by
+    G2_TEAM_BELOW["g2_dbl"][L] and `team`, as g2_add."""
+    return _point_dbl("g2_dbl", G, P, times, team)
 
 
 def merge_combine(G, aL, aR, bL, bR, fuse, asing, bsing):

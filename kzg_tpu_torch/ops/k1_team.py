@@ -42,6 +42,8 @@ JAX package's Field.mul.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 LIMB_MASK = 0xFFFF
@@ -91,15 +93,20 @@ def _owner(ranges, k):
     raise ValueError(f"column {k} has no owner")
 
 
+@functools.lru_cache(maxsize=None)
+def _window_index(ranges, C, shift, L):
+    """(T, C) rows of v to gather for _window: k - shift for each rank's
+    slot columns k, L (a zero row) where k - shift is not in [0, L) or the
+    slot is past the rank's range."""
+    return torch.tensor([[s + q - shift if s + q < e and 0 <= s + q - shift
+                          < L else L for q in range(C)] for s, e in ranges])
+
+
 def _window(v, ranges, C, shift, L):
     """(T, C, *batch) of v[k - shift] for each rank's slot columns k, zero
     where k - shift is not in [0, L): v is (L, *batch)."""
-    rows = []
-    for s, e in ranges:
-        rows.append(torch.stack(
-            [v[s + q - shift] if s + q < e and 0 <= s + q - shift < L
-             else torch.zeros_like(v[0]) for q in range(C)]))
-    return torch.stack(rows)
+    vz = torch.cat([v, torch.zeros_like(v[:1])])
+    return vz[_window_index(tuple(ranges), C, shift, L).to(v.device)]
 
 
 def _lagged(lagged, win):

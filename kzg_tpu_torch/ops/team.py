@@ -2,13 +2,17 @@
 chain), K4/K5 (G2) and K6 (the merge combine of either group), as data.
 
 The kernels (csrc/team.cuh) give each lane of a point batch to a team of
-threads inside one warp. The point, the constants and every
-intermediate live in the block's shared memory as base-field *slots* (L
-uint32 limbs each: 17 on BN254, 25 on BLS12-381, 11 on BN158); the
-formula runs in *levels*. In a level every
-instruction is independent of the others, team rank r executes
-instructions r, r + T, r + 2T, ... (T threads per team), and the team
-synchronises after it. An instruction is one of
+threads. The point, the constants and every intermediate live in the
+block's shared memory as base-field *slots* (L uint32 limbs each: 17 on
+BN254, 25 on BLS12-381, 11 on BN158); the formula runs in *levels*. In a
+level every instruction is independent of the others, and the team
+synchronises after it. On the lane executor team rank r executes
+instructions r, r + T, r + 2T, ... (T threads per team, of one warp). On
+the split executor (K4/K5 below ops/cuda.py G2_TEAM_BELOW) a team of T
+threads runs each product on a sub-team of R ranks, split by product
+columns (the split product of csrc/mont.cuh that K1's lane teams run,
+modelled by k1_team.run), P = T / R products a round, and each linear
+instruction on one warp, a lane a limb. An instruction is one of
 
   MUL    dst = (sa * sum(a)) (sb * sum(b)) R^-1   (one Montgomery product)
   LAZY   dst = sa * sum(a)                        (limbwise, no carries)
@@ -31,15 +35,18 @@ equals the plain version's once both are re-reduced.
 
 This module builds each group's four schedules (the add, the add of a
 reset lane, one doubling, the re-reduction after a chain), places each
-level's instructions, allocates slots by liveness, and encodes all of it,
-behind the constant rows the instructions read, as the uint32 *block* that
-ops/cuda.py appends to K1's modulus words in the group's constant array.
-The kernels execute that block: K2/K4 and K6 the add (K6 then makes the
+level's instructions for the products a round holds (T on the lane
+executor, P on the split one), allocates slots by liveness, and encodes
+all of it, behind the constant rows the instructions read, as the uint32
+*block* that ops/cuda.py appends to K1's modulus words in the group's
+constant array (``block``; the split executor's ``split_block``). The
+kernels execute that block: K2/K4 and K6 the add (K6 then makes the
 merge's selects from its output slots, in a layout of its own from
 MERGE_WIDE lanes up), K3/K5 the doubling and the re-reduction. ``run``
 executes the same words with the base field's plain ops (``plain_add``,
-``plain_dbl``, ``plain_merge``), which the CPU tests hold against the
-plain versions.
+``plain_dbl``, ``plain_merge``), each product split over its ranks as the
+split executor runs it where the block says so; the CPU tests hold it
+against the plain versions.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from . import k1_team
 
 MUL, LAZY, EXACT = 0, 1, 2
 CONST0 = 240                  # slot ids >= CONST0 are constant rows:
@@ -59,13 +68,23 @@ ADD_KERNEL = (ADD, RESET)            # K2/K4 run these (K6 ADD), K3/K5 DBL
 N_OUT = 6                            # output slot room per list (header)
 KINDS = 3                            # kernel kinds: add, doubling, merge
 WIDE, LEVELS, INSTRS = 9, 10, 11     # header words after the layouts,
-RANGES, OUTS = 12, 20                # then the ranges and output slots
-HDR = OUTS + 3 * N_OUT               # header words of the table
+RANGES, OUTS = 12, 20                # then the ranges and output slots,
+RANKS = OUTS + 3 * N_OUT             # the ranks a product of each kind
+HDR = RANKS + KINDS                  # header words of the table
 # Lane-team layouts, (threads per team, warps per block) of the add kernel
 # (K2/K4), of the doubling kernel (K3/K5) and of the merge kernel (K6) at
 # MERGE_WIDE lanes and more (narrower K6 launches take the add's), from
 # team_sweep.py on the H100 (PERF.md)
 LAYOUT = {"g1": ((6, 4), (3, 2), (3, 2)), "g2": ((8, 2), (8, 2), (8, 2))}
+# Split-executor layouts of K4 and K5 per limb count, (threads per team,
+# warps per block, ranks per product) of the add kernel and of the
+# doubling kernel: a team of one warp (W lanes a block) or of a whole
+# block (W = T / 32), R in SPLIT_RANKS dividing T; from team_sweep.py g2 on
+# the H100 (PERF.md, run AD5: 16 products a round of 16 ranks, 5 rounds an
+# add and 3 a doubling, the least time at 1-256 lanes)
+SPLIT_LAYOUT = {25: ((256, 8, 16), (256, 8, 16))}
+SPLIT_RANKS = (8, 16, 32)            # the R the split kernels are built for
+SPLIT_MAX_THREADS = 288              # team.cuh: a split block, at most
 MERGE_WIDE = 8192
 KP2 = (0, 2, 4, 16, 32)              # G2 EXACT slacks, multiples of p
 
@@ -323,14 +342,15 @@ def _reads(ins):
     return a[1] + (b[1] if kind != LAZY else ())
 
 
-def _levels(pg, team):
+def _levels(pg, per_round):
     """Place each instruction in a level (product levels even, linear
     levels odd). The depth is the as-soon-as-possible placement's; each
     instruction also has a latest level that keeps that depth. Linear
     instructions go as soon as they can. A product level is opened only
     for the products that cannot wait, and is then filled up to a whole
-    number of team rounds (a multiple of `team`) with products that are
-    ready, those that must go soonest first. Empty levels go."""
+    number of team rounds (a multiple of `per_round`, the products a round
+    holds) with products that are ready, those that must go soonest first.
+    Empty levels go."""
     kind = {ins[1]: ins[0] for ins in pg.ins}
     reads = {ins[1]: [n for n in _reads(ins) if n in kind] for ins in pg.ins}
     asap = {}
@@ -360,10 +380,10 @@ def _levels(pg, team):
         must = [n for n in ready if alap[n] == level]
         if not must:
             continue
-        rounds = -(-len(must) // team)
+        rounds = -(-len(must) // per_round)
         extra = sorted((n for n in ready if alap[n] > level),
                        key=lambda n: alap[n])
-        for n in must + extra[:rounds * team - len(must)]:
+        for n in must + extra[:rounds * per_round - len(must)]:
             lv[n] = level
     if len(lv) != len(kind):
         raise AssertionError("an instruction found no level")
@@ -436,6 +456,8 @@ def _kps(key):
 
 @functools.lru_cache(maxsize=None)
 def _table(key, layout):
+    """layout: (threads per team, warps per block, ranks per product) of
+    each kind."""
     kps = _kps(key)
     if key[0] == "g2":
         progs = (_g2_add(key[1]), _g2_reset(), _g2_dbl(key[1]), _g2_fresh())
@@ -447,7 +469,8 @@ def _table(key, layout):
     n_slots = [0, 0, 0]
     for sched, (pg, inputs, out, pinned) in enumerate(progs):
         kernel = 0 if sched in ADD_KERNEL else 1
-        lv, n_lv = _levels(pg, layout[kernel][0])
+        team, _, ranks = layout[kernel]
+        lv, n_lv = _levels(pg, team // ranks)
         slot = _alloc(pg, inputs, out, pinned, lv, n_lv)
         n_slots[kernel] = max(n_slots[kernel], pg.n_in,
                               1 + max(slot.values()))
@@ -465,9 +488,10 @@ def _table(key, layout):
         if sched != DBL:
             outs += [slot[n] for n in out] + [0] * (N_OUT - len(out))
     n_slots[2] = n_slots[0]                  # K6 runs the add's schedule
-    words = [v for k in range(KINDS) for v in (*layout[k], n_slots[k])]
+    words = [v for k in range(KINDS) for v in (*layout[k][:2], n_slots[k])]
     words += [MERGE_WIDE, len(levels), len(instrs)]
-    words += [v for r in ranges for v in r] + outs + levels
+    words += [v for r in ranges for v in r] + outs
+    words += [layout[k][2] for k in range(KINDS)] + levels
     words += [w for ins in instrs for w in ins]
     return tuple(words)
 
@@ -487,13 +511,50 @@ def table(G, layout=None):
           s (ADD, RESET, DBL, FRESH),
       [OUTS ...]: the output slots of ADD, RESET and FRESH (N_OUT each; G1
           uses 3, the rest 0),
+      [RANKS + k]: the ranks a product of kind k: 1 (one thread, the lane
+          executor's table) or R (split_table),
       then one word per level: first instruction | count << 16,
       then three words per instruction:
         kind | dst << 2 | sa << 10 | sb << 16 | na << 22 | nb << 25
              | kp << 28,  a slots (4 x 8 bits),  b slots (4 x 8 bits)."""
     if layout is None:
         layout = LAYOUT["g2" if G.is_fp2 else "g1"]
-    return _table(_key(G), tuple(tuple(v) for v in layout))
+    return _table(_key(G), tuple((*v, 1) for v in layout))
+
+
+def _check_split(team, warps, ranks):
+    """A split-executor layout as team.cuh split_prepare takes it."""
+    warp = team == 32 and 1 <= warps and 32 * warps <= SPLIT_MAX_THREADS
+    block = (team > 32 and team % 32 == 0 and 32 * warps == team
+             and team <= SPLIT_MAX_THREADS)
+    if not (warp or block) or ranks not in SPLIT_RANKS or team % ranks:
+        raise ValueError(
+            f"split layout {(team, warps, ranks)}: a team of one warp (W "
+            f"lanes a block, 32 W <= {SPLIT_MAX_THREADS}) or of a whole "
+            f"block (W = T / 32, T <= {SPLIT_MAX_THREADS}), ranks in "
+            f"{SPLIT_RANKS} dividing T")
+
+
+def split_layout(G):
+    """The shipped split layout of G2 group G (SPLIT_LAYOUT at its base
+    field's limb count); ValueError where there is none."""
+    L = G.F.base.L if G.is_fp2 else None
+    if L not in SPLIT_LAYOUT:
+        raise ValueError(f"{G.name}: no split-executor layout at {L} limbs "
+                         f"(SPLIT_LAYOUT: {sorted(SPLIT_LAYOUT)})")
+    return SPLIT_LAYOUT[L]
+
+
+def split_table(G, layout=None):
+    """The table of the split executor (K4/K5) for G2 group G: the same
+    schedules leveled for P = T / R products a round, under `layout` =
+    ((threads per team, warps per block, ranks per product) of the add
+    kernel, the same of the doubling kernel), default split_layout(G). The
+    merge kind's words repeat the add's (K6 runs the lane executor)."""
+    add, dbl = split_layout(G) if layout is None else layout
+    for lay in (add, dbl):
+        _check_split(*lay)
+    return _table(_key(G), (tuple(add), tuple(dbl), tuple(add)))
 
 
 def _limbs(v, L):
@@ -525,14 +586,22 @@ def block(G, layout=None):
     return rows(G) + list(table(G, layout))
 
 
+def split_block(G, layout=None):
+    """What the split K4/K5 kernels read behind the constants: rows(G),
+    then split_table(G, layout)."""
+    return rows(G) + list(split_table(G, layout))
+
+
 def rounds(words):
     """Product rounds of a team per schedule (ADD, RESET, DBL, FRESH): sum
-    over its product levels of ceil(products / threads per team)."""
+    over its product levels of ceil(products / products a round), the
+    products a round being threads per team / ranks per product."""
     ranges, _, lv, ins = _decode(words)
-    teams = [words[0 if s in ADD_KERNEL else 3] for s in range(4)]
-    return [sum(-(-(w >> 16) // team) for w in lv[slice(*r)]
+    kinds = [0 if s in ADD_KERNEL else 1 for s in range(4)]
+    per = [words[3 * k] // words[RANKS + k] for k in kinds]
+    return [sum(-(-(w >> 16) // n) for w in lv[slice(*r)]
                 if ins[3 * (w & 0xFFFF)] & 3 == MUL)
-            for r, team in zip(ranges, teams)]
+            for r, n in zip(ranges, per)]
 
 
 # ----------------------------------------------------------------------
@@ -568,11 +637,22 @@ def run(F, blk, sched, slots, stats=None):
     """Execute schedule `sched` of the block `blk` (rows, then table) over
     `slots` (a list of (L, *batch) limb tensors of the base field F, at
     least the schedule's inputs filled) with F's plain ops, as the kernel
-    does, in place. With `stats` (a dict), record the bounds of every
-    product's inputs (bound_stats). Returns `slots`."""
+    does, in place: a product by Field._mul_plain where the table gives its
+    kind one rank a product (the lane executor), else split over its R
+    ranks by k1_team.run, the split executor's product rank by rank. With
+    `stats` (a dict), record the bounds of every product's inputs
+    (bound_stats). Returns `slots`."""
     L = F.L
     words = blk[ROWS * L:]
     ranges, _, lv, ins = _decode(words)
+    ranks = words[RANKS + (0 if sched in ADD_KERNEL else 1)]
+    if ranks == 1:
+        mul = F._mul_plain
+    else:
+        tab = k1_team.table(L, (ranks, 1))
+
+        def mul(a, b):
+            return k1_team.run(F, a, b, tab)
     ndim = next(s.ndim for s in slots if s is not None)
     cst = [torch.tensor(blk[r * L:(r + 1) * L], dtype=torch.int64,
                         device=F.device).reshape((L,) + (1,) * (ndim - 1))
@@ -595,7 +675,7 @@ def run(F, blk, sched, slots, stats=None):
                 a, b = F._bc(a, b)
                 if stats is not None:
                     bound_stats(stats, a, b, F)
-                res.append((dst, F._mul_plain(a, b)))
+                res.append((dst, mul(a, b)))
                 continue
             t = F._norm16(a + cst[3 + kp])
             d, ok = F._sub_chain(list(t), list(F._norm16(b)))

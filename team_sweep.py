@@ -7,7 +7,15 @@ kernels run the team block built for that layout
 (kzg_tpu_torch/ops/team.py), are held exactly against their plain
 versions and timed (device time per launch, chip_smoke.kernel_ms) at
 widths the main and msm paths launch (K6: the 13 levels of a 4097-point
-merge msm, 32 x 1 to 32 x 4096 lanes). K1 runs the team table of each
+merge msm, 32 x 1 to 32 x 4096 lanes). `--limbs 25` (or 11) runs the G1
+or G2 kernels of BLS12-381 (BN158) instead of BN254's 17 limbs; a layout
+of three numbers (threads per team, warps per block, ranks per product)
+runs K4/K5 on the split executor (team.split_block), and then the sweep
+also times the shipped lane layout at the same widths, gives each
+layout's summed time below the shipped width rule (below_rule_ms) and
+prints, per kernel, the split layout of the least summed time below
+G2_NARROW lanes and the widths at which the lane executor is as fast
+(g2_picks). K1 runs the team table of each
 layout (kzg_tpu_torch/ops/k1_team.py) at 17, 25 and 11 limbs (BN254's,
 BLS12-381's and BN158's Fp, lazy limbs up to 2^22, the last 64 lanes at
 the point formulas' widest operands on BLS12-381 and BN158) at
@@ -17,9 +25,11 @@ Field._mul_plain; it prints, per limb count, the layout of the least
 summed time below 16384 lanes and the widths at which the thread-per-lane
 variant is as fast.
 
-    python3 team_sweep.py [g1|g2|merge|merge-g2|k1] [T,W ...]
+    python3 team_sweep.py [g1|g2|merge|merge-g2|k1] [--limbs L]
+                          [T,W ... | T,W,R ...]
         (default: g1 with 3,2 4,2 4,4 6,2 6,4 8,2 16,2;
-         g2 with 6,2 8,2 8,4 12,2 16,2; merge with 3,2 6,2 6,4;
+         g2 with 6,2 8,2 8,4 12,2 16,2, at 25 limbs the split layouts
+         SPLIT_DEFAULT; merge with 3,2 6,2 6,4;
          merge-g2 with 8,2 8,4 16,2; k1 with 4,4 8,1 8,2 8,4 16,2
          16,4 32,1 32,2)
 
@@ -39,6 +49,15 @@ import chip_smoke as cs
 
 ADD_LANES = (1, 32, 512, 2048, 5000, 80000)
 DBL_SHAPES = ((1, 8), (32, 8), (5000, 8))
+# K4/K5 on the split executor: the widths around the width rule too
+SPLIT_ADD_LANES = (1, 32, 128, 256, 512, 768, 1024, 2048, 4096, 5000, 8192,
+                   10000, 20000)
+SPLIT_DBL_SHAPES = ((1, 8), (32, 8), (512, 8), (1024, 8), (2048, 8),
+                    (5000, 8), (10000, 8))
+G2_NARROW = 8192
+SPLIT_DEFAULT = [(64, 2, 16), (128, 4, 16), (192, 6, 16), (256, 8, 8),
+                 (256, 8, 16), (256, 8, 32), (288, 9, 16)]
+CURVES = {17: "BN254", 25: cs.BLS, 11: cs.BN158}
 MERGE_LANES = tuple(32 << j for j in range(13))
 # K1: the pairing's stacked Fp2 products (108 lanes a pair), the NTT
 # butterflies, the subproduct trees' widths, up to BN254's Karatsuba batch
@@ -61,41 +80,102 @@ def main(argv):
     from kzg_tpu_torch.ops import cuda, team
     grp = argv[0] if argv and argv[0] in DEFAULT else "g1"
     argv = argv[1:] if argv and argv[0] in DEFAULT else argv
-    layouts = [tuple(int(v) for v in a.split(",")) for a in argv] or \
-        DEFAULT[grp]
+    L = cuda.BASE_L
+    if argv[:1] == ["--limbs"]:
+        L, argv = int(argv[1]), argv[2:]
+    layouts = [tuple(int(v) for v in a.split(",")) for a in argv] or (
+        SPLIT_DEFAULT if grp == "g2" and L in team.SPLIT_LAYOUT
+        else DEFAULT[grp])
     dev = torch.device("cuda", 0)
     t0 = time.time()
     if grp == "k1":
         return sweep_k1(dev, layouts, t0)
     merge = grp.startswith("merge")
     libs = ["msm_merge"] if merge else ["g1_ops", "g2_ops"]
-    secs = cuda.build(libs)
+    secs = cuda.build(libs, (L,))
     card = cs.smi()
     print(card, flush=True)
     for name in libs:
-        for ln in cuda.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln or "stack" in ln:
-                print(f"[build] {name}: {ln.strip()}")
+        for ln in cs.ptxas_lines(cuda.build_log(name, L)):
+            print(f"[build] {cuda.kernel_key(name, L)}: {ln}")
     print(f"[build] nvcc seconds {secs}", flush=True)
-    ctx = get_context("BN254", dev)
+    ctx = get_context(CURVES[L], dev)
     g2 = grp.endswith("g2")
     G = ctx.g2 if g2 else ctx.g1
     inputs = cs.g2_inputs if g2 else cs.g1_inputs
     P0, Q0, _, _, _ = inputs(ctx, cs.K23_LANES, random.Random(cs.SEED))
     consts = cuda._g2_consts(G) if g2 else cuda._g1_consts(G)
     prefix = consts[:len(consts) - len(team.block(G))]
-    timed = (sweep_merge if merge else sweep_ops)(ctx, G, P0, Q0)
+    split = any(len(tw) == 3 for tw in layouts)
+    if merge:
+        timed = sweep_merge(ctx, G, P0, Q0)
+    else:
+        timed = sweep_ops(ctx, G, P0, Q0, split)
+    rows = {}
+    if split:                    # the shipped lane layout beside them
+        layouts = [team.LAYOUT["g2"][0]] + layouts
     for tw in layouts:
-        G._kernel_consts = cuda._u32(prefix + team.block(G, (tw, tw, tw)))
-        words = team.table(G, (tw, tw, tw))
-        row = {"group": grp, "team": tw[0], "warps": tw[1],
+        if len(tw) == 3:
+            G._kernel_split_consts = cuda._u32(
+                prefix + team.split_block(G, (tw, tw)))
+            words = team.split_table(G, (tw, tw))
+        else:
+            G._kernel_consts = cuda._u32(prefix + team.block(G, (tw, tw, tw)))
+            words = team.table(G, (tw, tw, tw))
+        rows[tw] = timed(tw, len(tw) == 3 if split else None)
+        row = {"group": grp, "limbs": L, "team": tw[0], "warps": tw[1],
+               "ranks": tw[2] if len(tw) == 3 else 1,
                "slots": [words[2], words[5]], "rounds": team.rounds(words),
-               **timed(tw)}
+               **rows[tw]}
+        if split:
+            row["below_rule_ms"] = below_rule(rows[tw], L)
         print(json.dumps({"layout": row, "card": card}), flush=True)
     G._kernel_consts = cuda._u32(consts)
-    print(json.dumps({"shipped": team.LAYOUT,
+    G._kernel_split_consts = None
+    if split:
+        print(json.dumps({"g2_picks": g2_picks(rows, layouts[0]),
+                          "card": card}), flush=True)
+    print(json.dumps({"shipped": {"layout": team.LAYOUT,
+                                  "split_layout": team.SPLIT_LAYOUT,
+                                  "team_below": cuda.G2_TEAM_BELOW},
                       "seconds": time.time() - t0}), flush=True)
     return 0
+
+
+def below_rule(row, L):
+    """Per kernel (add, dbl) of a layout's row: its summed ms at the swept
+    widths below the shipped width rule at L limbs (G2_NARROW where the
+    rule has no entry)."""
+    from kzg_tpu_torch.ops import cuda
+    out = {}
+    for kern in ("add", "dbl"):
+        rule = cuda.G2_TEAM_BELOW[f"g2_{kern}"].get(L, G2_NARROW)
+        out[kern] = sum(ms for w, ms in row[kern].items()
+                        if int(str(w).split("x")[0]) < rule)
+    return out
+
+
+def g2_picks(rows, lane):
+    """Per kernel (add, dbl): the split layout whose shipping below the
+    widths where the lane layout `lane` is as fast costs least, summed over
+    the swept widths below G2_NARROW lanes (sum of min(split, lane) ms),
+    that sum, the lane layout's alone, and the widths at which the lane
+    layout is as fast as the pick."""
+    picks = {}
+    for kern in ("add", "dbl"):
+        narrow = [w for w in rows[lane][kern]
+                  if int(str(w).split("x")[0]) < G2_NARROW]
+
+        def cost(tw):
+            return sum(min(rows[tw][kern][w], rows[lane][kern][w])
+                       for w in narrow)
+        best = min((tw for tw in rows if len(tw) == 3), key=cost)
+        picks[kern] = {
+            "layout": best, "split_sum_ms": cost(best),
+            "lane_sum_ms": sum(rows[lane][kern][w] for w in narrow),
+            "lane_as_fast_from": [w for w, ms in rows[lane][kern].items()
+                                  if ms <= rows[best][kern][w]]}
+    return picks
 
 
 def sweep_k1(dev, layouts, t0):
@@ -107,9 +187,8 @@ def sweep_k1(dev, layouts, t0):
     card = cs.smi()
     print(card, flush=True)
     for L in cuda.LIMBS:
-        for ln in cuda.build_log("mont_mul", L).splitlines():
-            if "registers" in ln or "spill" in ln or "stack" in ln:
-                print(f"[build] mont_mul L={L}: {ln.strip()}")
+        for ln in cs.ptxas_lines(cuda.build_log("mont_mul", L)):
+            print(f"[build] mont_mul L={L}: {ln}")
     print(f"[build] nvcc seconds {secs}", flush=True)
     picks = {}
     for curve in ("BN254", cs.BLS, cs.BN158):
@@ -166,39 +245,44 @@ def sweep_k1(dev, layouts, t0):
     return 0
 
 
-def sweep_ops(ctx, G, P0, Q0):
+def sweep_ops(ctx, G, P0, Q0, split=False):
     """K2/K3 or K4/K5: the plain results, and a function that holds both
-    kernels against them under the layout uploaded and times them."""
+    kernels against them under the layout uploaded, on the variant `team`
+    (K4/K5: True the split executor, False the lane one; None the width
+    rule), and times them; with `split`, at the split widths."""
     from kzg_tpu_torch.ops import cuda
     grp = "g2" if G.is_fp2 else "g1"
     add, dbl = getattr(cuda, f"{grp}_add"), getattr(cuda, f"{grp}_dbl")
+    add_lanes = SPLIT_ADD_LANES if split else ADD_LANES
+    dbl_shapes = SPLIT_DBL_SHAPES if split else DBL_SHAPES
     want = {}
-    for lanes in ADD_LANES:
+    for lanes in add_lanes:
         P, Q = cs.tiled(P0, lanes), cs.tiled(Q0, lanes)
         want[lanes] = G.affine_packed(G._add_plain(P, Q))
-    for lanes, times in DBL_SHAPES:
+    for lanes, times in dbl_shapes:
         R = cs.tiled(P0, lanes)
         for _ in range(times):
             R = G._dbl_plain(R)
         want[(lanes, times)] = G.affine_packed(R)
 
-    def row(tw):
+    def row(tw, team=None):
+        kw = {} if team is None else {"team": team}
         out = {"add": {}, "dbl": {}}
-        for lanes in ADD_LANES:
+        for lanes in add_lanes:
             P, Q = cs.tiled(P0, lanes), cs.tiled(Q0, lanes)
-            err = (G.affine_packed(add(G, P, Q))
+            err = (G.affine_packed(add(G, P, Q, **kw))
                    - want[lanes]).abs().max().item()
             cs.check(err == 0, f"{grp} add {tw} lanes={lanes}: kernel != "
                      f"plain (max {err})")
-            out["add"][lanes] = cs.kernel_ms(lambda: add(G, P, Q))
-        for lanes, times in DBL_SHAPES:
+            out["add"][lanes] = cs.kernel_ms(lambda: add(G, P, Q, **kw))
+        for lanes, times in dbl_shapes:
             P = cs.tiled(P0, lanes)
-            err = (G.affine_packed(dbl(G, P, times))
+            err = (G.affine_packed(dbl(G, P, times, **kw))
                    - want[(lanes, times)]).abs().max().item()
             cs.check(err == 0, f"{grp} dbl {tw} {lanes}x{times}: kernel != "
                      f"plain (max {err})")
             out["dbl"][f"{lanes}x{times}"] = cs.kernel_ms(
-                lambda: dbl(G, P, times))
+                lambda: dbl(G, P, times, **kw))
         return out
 
     return row
@@ -221,7 +305,7 @@ def sweep_merge(ctx, G, P0, Q0):
                                  eng._combine_plain(aL, aR, bL, bR, *masks)],
                                 dim=-1)
 
-    def row(tw):
+    def row(tw, team=None):
         out = {"merge": {}}
         for lanes in MERGE_LANES:
             aL, aR, bL, bR, masks = ops[lanes]

@@ -18,19 +18,35 @@ bound, which is larger there (test_add_schedule_matches_plain). The BN158
 cases run them at 11 limbs on the other branches: G1's 3b = 39 is a
 product, and G2's Fp2 has qnr = 5, whose lazy c0 = v0 + 5 v1 takes its
 products past 64 p; there both groups are held to the plain version's own
-product inputs and to a b < R p (BN158_AB below). No JAX call:
-test_torch_groups.py ties the plain versions to kzg_tpu.
+product inputs and to a b < R p (BN158_AB below). test_torch_groups.py ties
+the plain versions to kzg_tpu on BN254.
+
+The split executor of K4/K5 (BLS12-381's 25 limbs below
+cuda.G2_TEAM_BELOW: each product split over R ranks by columns, the
+schedule leveled for the products a round) runs on team.split_block; the
+bls-split cases run its model (team.run with k1_team.run's split product)
+at the same bounds and hold it limb for limb against the lane executor's
+model, and as canonical points against kzg_tpu's own G2 add on
+BLS12-381 (jitted once per shape): the add with the reset select, and the
+doubling chain against that complete add of P + P, `times` times
+(kzg_tpu's dbl would compile another ~12 s of eager JAX on a CPU, past
+the port's test time budget). The wrapper's choice between the two C entry points by width
+runs through a fake library (test_g2_wrapper_picks_the_variant_by_width).
 """
 
+import ctypes
 import functools
 from fractions import Fraction
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from kzg_tpu.context import make_g2
+from kzg_tpu.curves.params import get_curve as jax_curve
 from kzg_tpu_torch.context import get_context
-from kzg_tpu_torch.ops import team
+from kzg_tpu_torch.ops import cuda, team
 from kzg_tpu_torch.refmodel.model import G1, G2
 
 torch.set_num_threads(2)
@@ -88,6 +104,17 @@ def _plain_stats(J, fn, monkeypatch):
     return out, stats
 
 
+_plain_runs = {}
+
+
+def _plain_once(key, J, fn, monkeypatch):
+    """_plain_stats of a case's plain version, once per `key` (a split
+    case shares it with the lane case of the same batch)."""
+    if key not in _plain_runs:
+        _plain_runs[key] = _plain_stats(J, fn, monkeypatch)
+    return _plain_runs[key]
+
+
 def _check_bounds(grp, J, stats, plain, ab_limit=1):
     """G2 with qnr = -1: the mul contract. G1, and G2 with qnr = 5: no
     product input above the plain version's own, in value or limbs, and a b
@@ -114,10 +141,49 @@ def _fresh(J, got):
         assert max(vals) < B.modulus * 11 // 10
 
 
-def _packed_pair(J, A, B):
-    """Canonical packed affine arrays of two batches (one inversion)."""
-    both = J.affine_packed({k: torch.cat([A[k], B[k]], dim=-1) for k in A})
-    return both[:, :N], both[:, N:]
+def _packed(J, *batches):
+    """Canonical packed affine arrays of batches of N lanes (one
+    inversion)."""
+    every = J.affine_packed({k: torch.cat([X[k] for X in batches], dim=-1)
+                             for k in batches[0]})
+    return [every[:, i * N:(i + 1) * N] for i in range(len(batches))]
+
+
+def _jax(P):
+    """A port point batch as kzg_tpu's limb arrays."""
+    return {k: v.numpy().astype(np.uint32) for k, v in P.items()}
+
+
+# XLA's CPU compile of kzg_tpu's 25-limb G2 add at its lowest optimization:
+# ~6 s against ~9 s (eager, its ~160 small programs take ~12 s); integer
+# results, so the same limbs
+_XLA_QUICK = {"xla_backend_optimization_level": 0,
+              "xla_llvm_disable_expensive_passes": True}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_g2(curve):
+    """kzg_tpu's G2 of `curve` and its add, compiled once per shape (later
+    adds of the same shapes reuse it)."""
+    jJ = make_g2(jax_curve(curve))
+    compiled = {}
+
+    def add(P, Q):
+        shape = P["x"].shape
+        if shape not in compiled:
+            compiled[shape] = jax.jit(jJ.add).lower(P, Q).compile(_XLA_QUICK)
+        return compiled[shape](P, Q)
+
+    return jJ, add
+
+
+def _from_jax(P):
+    return {k: torch.from_numpy(np.asarray(v).astype(np.int64))
+            for k, v in P.items()}
+
+
+def _same_limbs(A, B):
+    return all(torch.equal(A[k], B[k]) for k in ("x", "y", "z"))
 
 
 # The BLS12-381 G1 add's widest product: with inputs below 1.1 p the
@@ -142,29 +208,42 @@ BLS_G1_ADD_AB = Fraction(115, 100)
 # to the plain version's own inputs and to a b < 0.1 R p.
 BN158_AB = Fraction(1, 10)
 
-@pytest.mark.parametrize("grp,with_reset,curve", [
-    pytest.param("g2", False, "BN254", id="False"),
-    pytest.param("g2", True, "BN254", id="True"),
-    pytest.param("g1", False, "BN254", id="g1-False"),
-    pytest.param("g1", True, "BN254", id="g1-True"),
-    pytest.param("g2", True, "BLS12381", id="bls-True"),
-    pytest.param("g1", True, "BLS12381", id="bls-g1-True"),
-    pytest.param("g2", True, "BN158", id="bn158-True"),
-    pytest.param("g1", True, "BN158", id="bn158-g1-True")])
-def test_add_schedule_matches_plain(grp, with_reset, curve, monkeypatch):
+@pytest.mark.parametrize("grp,with_reset,curve,split", [
+    pytest.param("g2", False, "BN254", False, id="False"),
+    pytest.param("g2", True, "BN254", False, id="True"),
+    pytest.param("g1", False, "BN254", False, id="g1-False"),
+    pytest.param("g1", True, "BN254", False, id="g1-True"),
+    pytest.param("g2", True, "BLS12381", False, id="bls-True"),
+    pytest.param("g2", True, "BLS12381", True, id="bls-split-True"),
+    pytest.param("g1", True, "BLS12381", False, id="bls-g1-True"),
+    pytest.param("g2", True, "BN158", False, id="bn158-True"),
+    pytest.param("g1", True, "BN158", False, id="bn158-g1-True")])
+def test_add_schedule_matches_plain(grp, with_reset, curve, split,
+                                    monkeypatch):
     """On BLS12-381 the G1 add's products are held to a b < 1.15 R p
     (BLS_G1_ADD_AB: the output bound 2.15 p derived above), and the
-    widest one must reach past R p, as the derivation says it can."""
+    widest one must reach past R p, as the derivation says it can. The
+    split executor's block gives the lane executor's limbs and kzg_tpu's
+    points."""
     J, og, P, Q, pts, qts = _batch(grp, curve)
     reset = torch.tensor([i % 3 == 1 for i in range(N)]) if with_reset \
         else None
     stats = {}
-    got = team.plain_add(J, P, Q, reset, stats=stats)
-    want, plain = _plain_stats(J, lambda: J._add_plain(P, Q), monkeypatch)
+    got = team.plain_add(J, P, Q, reset, stats=stats,
+                         blk=team.split_block(J) if split else None)
+    want, plain = _plain_once(("add", grp, curve), J,
+                              lambda: J._add_plain(P, Q), monkeypatch)
     if reset is not None:
         want = J.select(reset, Q, want)
-    packed, ref = _packed_pair(J, got, want)
+    extra = ()
+    if split:
+        assert _same_limbs(got, team.plain_add(J, P, Q, reset))
+        jJ, add = _jax_g2(curve)
+        extra = (_from_jax(jJ.select(reset.numpy(), _jax(Q),
+                                     add(_jax(P), _jax(Q)))),)
+    packed, ref, *jax_ref = _packed(J, got, want, *extra)
     assert torch.equal(packed, ref)
+    assert all(torch.equal(packed, r) for r in jax_ref)
     sums = [og.add(a, b) for a, b in zip(pts, qts)]
     if reset is not None:
         sums = [b if s else c for b, s, c in zip(qts, reset.tolist(), sums)]
@@ -180,19 +259,23 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, monkeypatch):
                       BN158_AB if curve == "BN158" else 1)
 
 
-@pytest.mark.parametrize("grp,times,curve", [
-    pytest.param("g2", 1, "BN254", id="1"),
-    pytest.param("g2", 3, "BN254", id="3"),
-    pytest.param("g1", 1, "BN254", id="g1-1"),
-    pytest.param("g1", 3, "BN254", id="g1-3"),
-    pytest.param("g2", 3, "BLS12381", id="bls-3"),
-    pytest.param("g1", 3, "BLS12381", id="bls-g1-3"),
-    pytest.param("g2", 3, "BN158", id="bn158-3"),
-    pytest.param("g1", 3, "BN158", id="bn158-g1-3")])
-def test_dbl_schedule_matches_plain(grp, times, curve, monkeypatch):
+@pytest.mark.parametrize("grp,times,curve,split", [
+    pytest.param("g2", 1, "BN254", False, id="1"),
+    pytest.param("g2", 3, "BN254", False, id="3"),
+    pytest.param("g1", 1, "BN254", False, id="g1-1"),
+    pytest.param("g1", 3, "BN254", False, id="g1-3"),
+    pytest.param("g2", 3, "BLS12381", False, id="bls-3"),
+    pytest.param("g2", 3, "BLS12381", True, id="bls-split-3"),
+    pytest.param("g1", 3, "BLS12381", False, id="bls-g1-3"),
+    pytest.param("g2", 3, "BN158", False, id="bn158-3"),
+    pytest.param("g1", 3, "BN158", False, id="bn158-g1-3")])
+def test_dbl_schedule_matches_plain(grp, times, curve, split, monkeypatch):
+    """The split executor's block gives the lane executor's limbs and
+    kzg_tpu's G2 add of P + P, `times` times."""
     J, og, P, _, pts, _ = _batch(grp, curve)
     stats = {}
-    got = team.plain_dbl(J, P, times, stats=stats)
+    got = team.plain_dbl(J, P, times, stats=stats,
+                         blk=team.split_block(J) if split else None)
 
     def chain():
         R = P
@@ -200,9 +283,18 @@ def test_dbl_schedule_matches_plain(grp, times, curve, monkeypatch):
             R = J._dbl_plain(R)
         return R
 
-    want, plain = _plain_stats(J, chain, monkeypatch)
-    packed, ref = _packed_pair(J, got, want)
+    want, plain = _plain_once(("dbl", grp, curve, times), J, chain,
+                              monkeypatch)
+    extra = ()
+    if split:
+        assert _same_limbs(got, team.plain_dbl(J, P, times))
+        A = _jax(P)
+        for _ in range(times):
+            A = _jax_g2(curve)[1](A, A)
+        extra = (_from_jax(A),)
+    packed, ref, *jax_ref = _packed(J, got, want, *extra)
     assert torch.equal(packed, ref)
+    assert all(torch.equal(packed, r) for r in jax_ref)
     assert J.unpack_affine(packed) == [og.mul(1 << times, a) for a in pts]
     _fresh(J, got)
     _check_bounds(grp, J, stats, plain, BN158_AB if curve == "BN158" else 1)
@@ -290,8 +382,36 @@ def _fit_at(curve, L, rounds, lifts):
 def test_tables_fit_the_kernel_at_25_limbs():
     """BLS12-381 (Fp of 25 limbs): both groups' tables fit the kernels'
     image with BN254's rounds (the table does not depend on L), with G1's
-    slacks the lifts' m p (m = 247 and 266)."""
-    _fit_at("BLS12381", 25, ([3, 1, 3, 1], [7, 1, 4, 1]), [247, 266])
+    slacks the lifts' m p (m = 247 and 266). G2's split table (K4/K5 below
+    the width rule) fits too: the same instructions leveled for P = T / R
+    products a round (5 rounds an add at 18, the least its five product
+    levels allow, and 3 a doubling), the layout and R in its header, the
+    shared memory of split_prepare within a block's, and a layout that
+    split_prepare refuses raises here (its shared memory: the rows, the
+    padded p, the table's 768 words, the slots and each sub-team's operand
+    rows)."""
+    ctx = _fit_at("BLS12381", 25, ([3, 1, 3, 1], [7, 1, 4, 1]), [247, 266])
+    J, L = ctx.g2, 25
+    lane, w = team.table(J), team.split_table(J)
+    _fits(w)
+    layout = team.SPLIT_LAYOUT[L]
+    assert [tuple(w[3 * k:3 * k + 2]) + (w[team.RANKS + k],)
+            for k in range(team.KINDS)] == [layout[0], layout[1], layout[0]]
+    assert [lane[team.RANKS + k] for k in range(team.KINDS)] == [1, 1, 1]
+    assert team.rounds(w) == [5, 1, 3, 1]
+    assert w[team.INSTRS] == lane[team.INSTRS]
+    for k, (per, warps, ranks) in enumerate(layout):
+        pz = 3 * L + 31                  # team.cuh SPLIT_PZ, SPLIT_ROW
+        rows = per // ranks * (L + pz)
+        smem = 4 * (team.ROWS * L + pz + 768
+                    + (w[3 * k + 2] * L + rows) * 32 * warps // per)
+        assert smem <= 232448
+    for bad in ((48, 2, 16), (64, 1, 16), (32, 2, 12), (96, 3, 64),
+                (320, 10, 16)):
+        with pytest.raises(ValueError, match="split layout"):
+            team.split_table(J, (bad, layout[1]))
+    with pytest.raises(ValueError, match="no split-executor layout"):
+        team.split_table(get_context("BN254", "cpu").g2)
 
 
 def test_tables_fit_the_kernel_at_11_limbs():
@@ -322,8 +442,137 @@ def test_kernel_constants_refuse_unencoded_branches():
                           (ctx.g2, cuda._g2_consts)):
             B = J.F.base if J.is_fp2 else J.F
             assert consts(J)[2 * B.L + 1:] == team.block(J)
+    J = get_context("BLS12381", "cpu").g2
+    assert cuda._g2_consts(J, split=True)[51:] == team.split_block(J)
     ctx = get_context("BN158", "cpu")
     with pytest.raises(ValueError, match="9b > 15"):
         cuda._g1_consts(Curve(ctx.fp, 3, name="b1"))
     with pytest.raises(ValueError, match="qnr"):
         cuda._g2_consts(Curve(Fp2(ctx.fp, 3), (156, 39), name="qnr3"))
+
+
+class _FakeG2:
+    """Stands in for g2_ops at 25 limbs: records the entry point and the
+    constant block it reads back from the raw pointer, and, on launches of
+    at most N lanes, reads the coordinates and the reset mask back too and
+    writes the outputs of team.plain_add / plain_dbl (the lane executor's
+    model) to `out` (wider launches: the routing alone, on the CPU's
+    time)."""
+
+    def __init__(self, G):
+        self.G, self.calls = G, []
+        self.L = G.F.base.L
+
+    def _point(self, ptrs, lanes):
+        L = self.L
+        return {k: torch.from_numpy(np.ctypeslib.as_array(
+            (ctypes.c_int64 * (2 * L * lanes)).from_address(p)).reshape(
+                2, L, lanes).copy()) for k, p in zip(("x", "y", "z"), ptrs)}
+
+    def _block(self, consts):
+        words = ctypes.cast(consts, ctypes.POINTER(ctypes.c_uint32))
+        head = 2 * self.L + 1 + team.ROWS * self.L
+        n = (team.HDR + words[head + team.LEVELS]
+             + 3 * words[head + team.INSTRS])
+        return words[2 * self.L + 1:head + n]
+
+    def _write(self, ptr, R):
+        out = torch.stack([R[k] for k in ("x", "y", "z")]).reshape(-1)
+        np.ctypeslib.as_array((ctypes.c_int64 * out.numel()).from_address(
+            ptr))[:] = out.numpy()
+
+    def _add(self, entry, px, py, pz, qx, qy, qz, reset, out, lanes, consts,
+             n_limbs, stream):
+        self.calls.append((entry, n_limbs, self._block(consts)))
+        if lanes > N:
+            return 0
+        mask = None if reset is None else torch.from_numpy(
+            np.ctypeslib.as_array((ctypes.c_uint8 * lanes).from_address(
+                reset)).astype(bool))
+        self._write(out, team.plain_add(
+            self.G, self._point((px, py, pz), lanes),
+            self._point((qx, qy, qz), lanes), mask))
+        return 0
+
+    def _dbl(self, entry, px, py, pz, out, lanes, times, consts, n_limbs,
+             stream):
+        self.calls.append((entry, n_limbs, self._block(consts)))
+        if lanes > N:
+            return 0
+        self._write(out, team.plain_dbl(
+            self.G, self._point((px, py, pz), lanes), times))
+        return 0
+
+    def kzg_g2_add(self, *a):
+        return self._add("kzg_g2_add", *a)
+
+    def kzg_g2_add_split(self, *a):
+        return self._add("kzg_g2_add_split", *a)
+
+    def kzg_g2_dbl(self, *a):
+        return self._dbl("kzg_g2_dbl", *a)
+
+    def kzg_g2_dbl_split(self, *a):
+        return self._dbl("kzg_g2_dbl_split", *a)
+
+
+def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
+    """On BLS12-381 (25 limbs), just below G2_TEAM_BELOW[name][25] lanes
+    cuda.g2_add and cuda.g2_dbl call the split entry point with the split
+    block (team.split_block), at that width the lane entry point with
+    team.block, `team` True or False forces either at one lane, each from
+    the library built at 25 limbs, each launch counted once under the
+    kernel's 25-limb key; at one lane the outputs are the model's limbs
+    (held to the plain versions above). g2_grid gives each variant's
+    launch. BN254 (17 limbs) has no split layout: a forced split raises."""
+    monkeypatch.setattr(cuda, "_stream", lambda: None)
+    monkeypatch.setattr(cuda, "_require", lambda *a, **k: None)
+    J, og, P0, Q0, pts, qts = _batch("g2", "BLS12381")
+    L = 25
+    fake = _FakeG2(J)
+    asked = []
+
+    def lib(source, limbs=cuda.BASE_L):
+        asked.append((source, limbs))
+        return fake
+
+    monkeypatch.setattr(cuda, "_lib", lib)
+    blocks = {True: team.split_block(J), False: team.block(J)}
+
+    def tiled(X, n):
+        return {k: v.repeat(1, 1, -(-n // N))[..., :n].contiguous()
+                for k, v in X.items()}
+
+    for name, below in cuda.G2_TEAM_BELOW.items():
+        key = cuda.kernel_key(name, L)
+        for lanes, team_arg, split in ((below[L] - 1, None, True),
+                                       (below[L], None, False),
+                                       (1, False, False), (1, True, True)):
+            P, Q = tiled(P0, lanes), tiled(Q0, lanes)
+            reset = torch.arange(lanes) % 3 == 1
+            before = cuda.counts()
+            if name == "g2_add":
+                got = cuda.g2_add(J, P, Q, reset, team=team_arg)
+            else:
+                got = cuda.g2_dbl(J, P, 1, team=team_arg)
+            after = cuda.counts()
+            entry = "kzg_" + name + ("_split" if split else "")
+            assert fake.calls[-1] == (entry, L, blocks[split])
+            assert asked[-1] == ("g2_ops", L)
+            assert {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]} == {key: 1}
+            if lanes > N:
+                continue
+            assert _same_limbs(got, team.plain_add(J, P, Q, reset)
+                               if name == "g2_add" else
+                               team.plain_dbl(J, P, 1))
+        per, warps, _ = team.SPLIT_LAYOUT[L][name == "g2_dbl"]
+        assert cuda.g2_grid(name, L, below[L] - 1) == (
+            -(-(below[L] - 1) * per // (32 * warps)), 32 * warps)
+        lane = team.LAYOUT["g2"][name == "g2_dbl"]
+        assert cuda.g2_grid(name, L, below[L]) == (
+            -(-below[L] // (32 // lane[0] * lane[1])), 32 * lane[1])
+    bn = get_context("BN254", "cpu").g2
+    with pytest.raises(ValueError, match="no split-executor layout"):
+        cuda.g2_add(bn, *[{k: v[:, :, :1] for k, v in X.items()}
+                          for X in (P0, Q0)], team=True)
