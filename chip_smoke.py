@@ -34,8 +34,9 @@ mismatch or exception exits non-zero before the result line):
                inputs reach the G1 add's widest product operands (12 x 247
                p with limbs up to 786,420, times ~248 p), and the 17-limb
                K1 on BLS12-381's Fr; K2-K6 at 25 limbs (K2's products reach
-               ~2964 p, checked on the plain schedule's statistics; K4 and
-               K5 on both executors, split and lane, at every check); and on
+               ~2964 p, checked on the statistics of both executors'
+               schedules; K2-K5 on both executors, split and lane, at every
+               check); and on
                BN158: K1 at 11 limbs on Fp and Fr, with lanes at the G1
                add's widest operands (~186 p times ~186 p) and at the G2
                Karatsuba's (8 (c0 + c1) of qnr = 5 products, limbs up to
@@ -126,8 +127,8 @@ mismatch or exception exits non-zero before the result line):
                bound)); K1 in both variants (team_ms, lane_ms, `ships`: the
                one the width rule picks, which ms is) beside floor_ms, an
                empty kernel's launch on the shipped variant's grid, and the
-               lane-team variant must have run on each main path; K4 and
-               K5 at 25 limbs likewise in both variants (split_ms,
+               lane-team variant must have run on each main path; K2-K5
+               at 25 limbs likewise in both variants (split_ms,
                lane_ms, ships, floor_ms; each variant an entry of the
                kernels line with its own launches, and the split executor
                must have run); K6 also
@@ -189,6 +190,12 @@ CLI_SEED = 20261018
 CLI_SMALL_TERMS = 16
 CLI_SMALL_SECRET = 0xC0FFEE_1234_5678_9ABC_DEF0
 MULTIPROOF_K = (257, 512, 4096)          # above MULTIEVAL_DIRECT = 256
+# the demo phase: Z(s) and q(s) of a storage proof of the demo's document
+# whose pairing check ends its Miller loop with T's lazy y past 8 p
+# (tests/test_torch_protocol.py holds the same check on the CPU)
+DEMO_WIDE_Y = (
+    0xcec23b30e5aa9b7002b56f7d78b69328d4e78a1a48f4aef87bbabde122eff85,
+    0x36d35d02275fee6ea216b78cf066f9e975a17ffadedbaf1521e48c2f34b49ff)
 # the parallel phase: ranks sharing the one card, the sharded msm's points
 # (a multiple of the ranks) and the four-step NTT's sizes per curve; the
 # groups it forms: the ranks over gloo (staged through the host), then one
@@ -607,8 +614,8 @@ def phase_kernels(dev, errs, curve="BN254"):
             chains[times] = P
             for _ in range(times):
                 chains[times] = G._dbl_plain(chains[times])
-        variants = g2_variants(G)
-        for forced in variants:        # K4/K5 at 25 limbs: both executors
+        variants = point_variants(G)
+        for forced in variants:        # K2-K5 at 25 limbs: both executors
             kw = team_kw(forced)
             v = "" if forced is None else f" team={forced}"
             k = add(G, P, Q, **kw)
@@ -631,10 +638,18 @@ def phase_kernels(dev, errs, curve="BN254"):
                 for i in sample:
                     check(got[i] == og.mul(1 << times, pts_p[i]),
                           f"{kdbl}{v} times={times} lane {i} vs oracle")
-        # the largest product inputs of the add's schedule on these lanes
+        # the largest product inputs of the add's schedule on these lanes,
+        # on the split executor's leveling too (its model: team.run with
+        # the split product), which must give the same
+        P64, Q64 = [{c: v[..., :64] for c, v in X.items()} for X in (P, Q)]
         stats = {}
-        team.plain_add(G, {c: v[..., :64] for c, v in P.items()},
-                       {c: v[..., :64] for c, v in Q.items()}, stats=stats)
+        team.plain_add(G, P64, Q64, stats=stats)
+        if len(variants) == 2:
+            split_stats = {}
+            team.plain_add(G, P64, Q64, blk=team.split_block(G),
+                           stats=split_stats)
+            check(split_stats == stats, f"{kadd}: the split schedule's "
+                  "product inputs differ from the lane schedule's")
         p = p_of(G)
         check(stats["value"] > WIDEST[curve, grp] * p,
               f"{kadd}: the checked adds miss the widest operands")
@@ -696,7 +711,7 @@ def edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs):
     L = G.F.base.L if G.is_fp2 else G.F.L
     kadd = cuda.kernel_key(f"{grp}_add", L)
     kdbl = cuda.kernel_key(f"{grp}_dbl", L)
-    variants = g2_variants(G)
+    variants = point_variants(G)
     for n in EDGE_LANES:
         Pn = {k: v[..., :n].contiguous() for k, v in P.items()}
         Qn = {k: v[..., :n].contiguous() for k, v in Q.items()}
@@ -1234,15 +1249,33 @@ def phase_cli(dev, card, main_state):
          "on the demo's document == the oracle's, verify 0")
 
 
-def phase_demo(card):
+def phase_demo(dev, card):
     """kzg_tpu_torch.demo.run_demo() on the card: the demo's own sizes
     (SETUP_TERMS 512, its 264-byte document); every CLI call is a process of
     its own, so its launches are not counted here (the cli phase counts the
-    same calls in-process)."""
+    same calls in-process). Its challenges are random, so first the pairing
+    check of one demo storage proof whose Miller point ends with a lazy y
+    past 8 p (DEMO_WIDE_Y) must hold on the card."""
+    from kzg_tpu_torch.context import get_context
+    from kzg_tpu_torch.curves.params import get_curve
     from kzg_tpu_torch.demo import run_demo
+    from kzg_tpu_torch.pairing.engine import PairingEngine
+    from kzg_tpu_torch.refmodel.model import G1, G2
     t0 = time.time()
+    cp, ctx = get_curve("BN254"), get_context("BN254", device=dev)
+    og1, og2 = G1(cp), G2(cp)
+    a, b = DEMO_WIDE_Y
+
+    def pt(G, P):
+        return {k: v[..., 0] for k, v in G.encode_points([P]).items()}
+
+    check(bool(PairingEngine(ctx).pairing_check(
+        pt(ctx.g2, og2.mul(a, og2.gen)), pt(ctx.g1, og1.mul(b, og1.gen)),
+        pt(ctx.g2, og2.gen), pt(ctx.g1, og1.mul(a * b % cp.r, og1.gen)))
+        .item()), "demo: the pairing check at a Miller point's wide y")
+    t1 = time.time()
     rc, out = run_demo(timeout=600)
-    ms = (time.time() - t0) * 1e3
+    ms = (time.time() - t1) * 1e3
     tail = out.strip().splitlines()
     check(rc == 0, f"demo exits {rc}:\n{out[-3000:]}")
     check(tail and tail[-1] == "demo complete", "demo does not complete")
@@ -1250,8 +1283,8 @@ def phase_demo(card):
           "demo: both hours' storage proofs VALID")
     print(json.dumps({"demo": {"card": card, "wall_ms": ms,
                                "lines": len(tail)}}), flush=True)
-    line("demo", t0, f"run-demo exit 0 in {ms:.0f} ms, both hours' storage "
-         "proofs VALID, demo complete")
+    line("demo", t0, f"wide-y pairing check holds; run-demo exit 0 in "
+         f"{ms:.0f} ms, both hours' storage proofs VALID, demo complete")
 
 
 def phase_multiproof(card, main_state, data):
@@ -1773,19 +1806,20 @@ def point_muls(G):
     return 1, 12 + 2 * b3_mul, 9 + b3_mul
 
 
-def g2_variants(G):
-    """The variants that K4/K5 of G's group are held and timed on: (True,
-    False), the split and the lane executor, where the width rule has a
-    split layout at the base field's limb count (BLS12-381's 25 limbs),
-    else (None,), the one executor."""
+def point_variants(G):
+    """The variants that the add and doubling kernels of G's group (K2/K3
+    or K4/K5) are held and timed on: (True, False), the split and the lane
+    executor, where the width rule has a split layout at the base field's
+    limb count (BLS12-381's 25 limbs), else (None,), the one executor."""
     from kzg_tpu_torch.ops import cuda
-    if G.is_fp2 and G.F.base.L in cuda.G2_TEAM_BELOW["g2_add"]:
+    grp, L = ("g2", G.F.base.L) if G.is_fp2 else ("g1", G.F.L)
+    if L in cuda.SPLIT_BELOW[f"{grp}_add"]:
         return (True, False)
     return (None,)
 
 
 def team_kw(team):
-    """The wrapper's keyword that forces a K4/K5 variant (none: the width
+    """The wrapper's keyword that forces a K2-K5 variant (none: the width
     rule)."""
     return {} if team is None else {"team": team}
 
@@ -1868,8 +1902,8 @@ def sweep(paths, ctx, bases, bound, errs, gen):
     canonical affine points), then its device time per launch (kernel_ms)
     and bound; per path, path_ms = sum over shapes of the path's launches x
     ms, and gap_ms the same of ms - bound_ms. bases: {group: (curve, P,
-    Q)}. An add moves 9 coordinates, a chain 6 (K6: merge_sweep). K4/K5 at
-    25 limbs in both variants (g2_variants): split_ms and lane_ms, each the
+    Q)}. An add moves 9 coordinates, a chain 6 (K6: merge_sweep). K2-K5 at
+    25 limbs in both variants (point_variants): split_ms and lane_ms, each the
     median of three kernel_ms taken in turns, ms and `ships` the one the
     width rule picks, floor_ms an empty kernel on its grid; per path also
     lane_path_ms (every launch on the lane executor), floor_ms and the
@@ -1883,7 +1917,7 @@ def sweep(paths, ctx, bases, bound, errs, gen):
         G, base_p, base_q = bases[grp]
         comps, add_muls, dbl_muls = point_muls(G)
         kadd, kdbl = getattr(cuda, f"{grp}_add"), getattr(cuda, f"{grp}_dbl")
-        variants = g2_variants(G)
+        variants = point_variants(G)
         keys = sorted({key for _, shp in paths.values()
                        for key in shp.get(name, {})},
                       key=lambda k: k if isinstance(k, tuple) else (k,))
@@ -1933,8 +1967,8 @@ def sweep(paths, ctx, bases, bound, errs, gen):
                     for team in variants:
                         runs[team].append(kernel_ms(lambda: kern(team)))
                 ms = {team: statistics.median(v) for team, v in runs.items()}
-                ships = cuda.g2_uses_team(kname, L, lanes)
-                grid = cuda.g2_grid(kname, L, lanes)
+                ships = cuda.uses_split(kname, L, lanes)
+                grid = cuda.point_grid(kname, L, lanes)
                 floor = kernel_ms(lambda: cuda.empty_launch(*grid))
                 row.update(ships="split" if ships else "lane", ms=ms[ships],
                            split_ms=ms[True], lane_ms=ms[False],
@@ -1950,7 +1984,7 @@ def sweep(paths, ctx, bases, bound, errs, gen):
         res[name] = {"shapes": rows, "path_ms": path_ms,
                      "gap_ms": gaps(rows, paths)}
         if len(variants) == 2:
-            res[name].update(team_below=cuda.G2_TEAM_BELOW[kname][L], **sums,
+            res[name].update(team_below=cuda.SPLIT_BELOW[kname][L], **sums,
                              launches_by_variant=by_variant)
     for grp in ("g1", "g2"):
         res[cuda.kernel_key(f"merge_combine_{grp}", L)] = merge_sweep(
@@ -2060,18 +2094,18 @@ def phase_kernel_line(dev, curve_paths, errs):
 
     def variant_entries(Gc, key, lanes_of, kernel_fn, plain_fn, work,
                         shape_of, shapes):
-        """K4 or K5 (launch counter `key`) in each variant at 25 limbs: an
+        """K2-K5 (launch counter `key`) in each variant at 25 limbs: an
         entry named key (the lane executor) and key + " split", each at the
         heaviest shape the width rule gave that variant (the heaviest of all
         where it got none), with that variant's launches per path; the
         split executor must have run on the paths."""
         kname = key.split("@")[0]
-        L = Gc.F.base.L
+        L = Gc.F.base.L if Gc.is_fp2 else Gc.F.L
         for team in (True, False):
             mine = {k: n for k, n in shapes[key].items()
-                    if cuda.g2_uses_team(kname, L, lanes_of(k)) == team}
+                    if cuda.uses_split(kname, L, lanes_of(k)) == team}
             by_path = {path: sum(n for k, n in shp.get(key, {}).items()
-                                 if cuda.g2_uses_team(kname, L, lanes_of(k))
+                                 if cuda.uses_split(kname, L, lanes_of(k))
                                  == team)
                        for path, (_, shp) in on.items()}
             shp = heaviest(mine or shapes[key])
@@ -2083,7 +2117,7 @@ def phase_kernel_line(dev, curve_paths, errs):
                   kernel_fn(shp, team), plain_fn(shp), Gc.affine_packed,
                   *work(shp), shape_of(shp), by_path=by_path,
                   variant=variant,
-                  team_below=cuda.G2_TEAM_BELOW[kname][L])
+                  team_below=cuda.SPLIT_BELOW[kname][L])
 
     def packed_all(G):
         def canon(pts):
@@ -2161,7 +2195,7 @@ def phase_kernel_line(dev, curve_paths, errs):
             def dbl_work(shape):
                 return point_work(L, comps, 6, dbl_muls * shape[1], shape[0])
 
-            if len(g2_variants(Gc)) == 2:
+            if len(point_variants(Gc)) == 2:
                 variant_entries(Gc, add, lambda k: k, add_fn, add_plain,
                                 add_work, lambda k: {"lanes": k}, shapes)
                 variant_entries(Gc, dbl, lambda k: k[0], dbl_fn, chain,
@@ -2250,7 +2284,7 @@ def main():
         card, states["BN254"], main_message())
     phase_native(dev, card, states["BN254"])
     phase_cli(dev, card, states["BN254"])
-    phase_demo(card)
+    phase_demo(dev, card)
     phase_parallel(card, states["BN254"])
     phase_kernel_line(dev, curve_paths, errs)
     check("jax" not in sys.modules and not any(

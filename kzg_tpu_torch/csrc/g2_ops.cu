@@ -31,7 +31,7 @@
 // intermediate live in the block's shared memory; the formula runs as
 // levels of independent instructions spread over the team, and no operand
 // goes through a local stack frame. Two variants, picked by width
-// (ops/cuda.py G2_TEAM_BELOW, per kernel and limb count):
+// (ops/cuda.py SPLIT_BELOW, per kernel and limb count):
 //   lane (from the rule up, and at every width at 17 and 11 limbs): teams
 //        of T threads of one warp, each product an inlined L x L
 //        Montgomery product on operands in registers; a lane's chain falls

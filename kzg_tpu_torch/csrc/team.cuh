@@ -28,8 +28,8 @@
 // ranks a product in words 38-40) and share one image, so alternating
 // launches upload nothing.
 //
-// Two executors run the schedules. The lane executor (K2, K3, K6, and K4
-// and K5 from their width rule up): one instruction runs in one thread,
+// Two executors run the schedules. The lane executor (K6, and K2-K5 from
+// their width rule up): one instruction runs in one thread,
 // its operands (sums of up to four slots, times a small scale) loaded from
 // shared memory into registers, a product the inlined mont_mul of
 // mont.cuh (the form K1 runs near its byte bound), one unrolled L x L
@@ -37,7 +37,7 @@
 // __syncwarp(team mask); a team never waits on threads outside it, so a
 // team past the batch's end or a warp's spare threads may leave early.
 //
-// The split executor (K4 and K5 below cuda.G2_TEAM_BELOW, BLS12-381's 25
+// The split executor (K2-K5 below cuda.SPLIT_BELOW, BLS12-381's 25
 // limbs): there one lane's chain of whole products sets the launch's time
 // (a 25-limb product takes one thread ~7 us a round), so each product of a
 // level is split by columns over a sub-team of R ranks: the split product

@@ -15,9 +15,9 @@ kernel, each of its call sites is here a kernel written by hand for Hopper
   K4 ``g2_add``           (csrc/g2_ops.cu)    — G2 complete add with reset
                                                 mask (T2, T4, T6, T7);
   K5 ``g2_dbl``           (csrc/g2_ops.cu)    — chain of G2 doublings (T3);
-                                                K4 and K5 on the split
+                                                K2-K5 on the split
                                                 executor below
-                                                G2_TEAM_BELOW lanes;
+                                                SPLIT_BELOW lanes;
   K6 ``merge_combine_g1`` / ``merge_combine_g2`` (csrc/msm_merge.cu) — the
                           merge strategy's per-level combine (T5).
 
@@ -25,9 +25,9 @@ K2-K6 run lane teams (csrc/team.cuh) over the constant rows and schedule
 table of ops/team.py (K6 runs the add's schedule, in a layout of its own
 from team.MERGE_WIDE lanes up). A group's constant array is K1's modulus
 words (p, R mod p, n0: 2 L + 1 uint32 of the base field), then that team
-block (_g1_consts, _g2_consts); K4 and K5 below G2_TEAM_BELOW run the
-split executor, each product split over a sub-team of ranks, from a block
-of their own (team.split_block).
+block (_g1_consts, _g2_consts); K2-K5 below SPLIT_BELOW run the split
+executor, each product split over a sub-team of ranks, from a block of
+their own (team.split_block).
 
 The limb count L is a compile-time constant of the sources (``-DKZG_L``):
 each source compiles once per limb count it is asked for, 17 for BN254's
@@ -91,13 +91,17 @@ LIMBS = (BASE_L, 25, 11)
 # 3072 lanes and 1.01 x at 3584; at 25, 0.94 x at 5120 and 1.05 x at 5632;
 # at 11, 0.96 x at 1536 and 1.00 x at 2048)
 K1_TEAM_BELOW = {BASE_L: 3072, 25: 5120, 11: 2048}
-# K4 (g2_add) and K5 (g2_dbl, lanes whatever `times`) launches below this
+# The width rule of the four point kernels: K2 (g1_add), K3 (g1_dbl,
+# lanes whatever `times`), K4 (g2_add) and K5 (g2_dbl) launches below this
 # many lanes run the split executor (layout team.SPLIT_LAYOUT), wider ones
 # the lane executor; per kernel and limb count (none: the lane executor
-# at every width), from team_sweep.py g2 on the H100 (PERF.md, run AD5:
+# at every width), from team_sweep.py on the H100 (PERF.md). G2, run AD5:
 # K4's split executor takes 0.81 x the lane executor's time at 512 lanes
-# and 1.09 x at 768; K5's 0.83 x at 512 x 8 and 1.48 x at 1024 x 8)
-G2_TEAM_BELOW = {"g2_add": {25: 768}, "g2_dbl": {25: 1024}}
+# and 1.09 x at 768; K5's 0.83 x at 512 x 8 and 1.48 x at 1024 x 8. G1,
+# run AE1: K2's 0.80 x at 512 lanes and 1.11 x at 768; K3's 0.95 x at 1024
+# x 8 and 1.67 x at 2048 x 8
+SPLIT_BELOW = {"g1_add": {25: 768}, "g1_dbl": {25: 2048},
+               "g2_add": {25: 768}, "g2_dbl": {25: 1024}}
 
 
 class Kernel:
@@ -253,6 +257,8 @@ _ARGTYPES = {
     "kzg_k1_empty": [_I64, _INT, _VP],
     "kzg_g1_add": [_VP] * 8 + [_I64, _VP, _INT, _VP],
     "kzg_g1_dbl": [_VP] * 4 + [_I64, _INT, _VP, _INT, _VP],
+    "kzg_g1_add_split": [_VP] * 8 + [_I64, _VP, _INT, _VP],
+    "kzg_g1_dbl_split": [_VP] * 4 + [_I64, _INT, _VP, _INT, _VP],
     "kzg_g2_add": [_VP] * 8 + [_I64, _VP, _INT, _VP],
     "kzg_g2_dbl": [_VP] * 4 + [_I64, _INT, _VP, _INT, _VP],
     "kzg_g2_add_split": [_VP] * 8 + [_I64, _VP, _INT, _VP],
@@ -330,9 +336,10 @@ def k1_table(L):
     return _k1_tables[L]
 
 
-def _g1_consts(G):
-    """K1's constants, then the lane-team block of K2/K3/K6 (team.block).
-    The schedules follow Curve._add_plain / _dbl_plain on either branch of
+def _g1_consts(G, split=False):
+    """K1's constants, then the lane-team block of K2/K3/K6 (team.block),
+    or with `split` the split executor's (team.split_block). The schedules
+    follow Curve._add_plain / _dbl_plain on either branch of
     3b (a lazy small multiple when 3b <= 14: BN254's 6, BLS12-381's 12; a
     full product above: BN158's 39) and on the branch of 9b > 15 (a full
     product); a curve with 9b <= 15 raises."""
@@ -342,7 +349,7 @@ def _g1_consts(G):
         raise ValueError(f"{G.name}: the G1 kernels take 9b > 15, not "
                          f"3b = {b3}")
     return (list(F.params.limbs) + list(F.params.one_limbs) + [F.n0]
-            + team.block(G))
+            + (team.split_block(G) if split else team.block(G)))
 
 
 def _g2_consts(G, split=False):
@@ -361,11 +368,11 @@ def _g2_consts(G, split=False):
 
 def _consts(G, split=False):
     """The constant block of G's point kernels (with `split`: of the split
-    K4/K5), built once per curve."""
+    K2-K5), built once per curve."""
     attr = "_kernel_split_consts" if split else "_kernel_consts"
     c = getattr(G, attr, None)
     if c is None:
-        c = _u32(_g2_consts(G, split) if G.is_fp2 else _g1_consts(G))
+        c = _u32(_g2_consts(G, split) if G.is_fp2 else _g1_consts(G, split))
         setattr(G, attr, c)
     return ctypes.cast(c, _VP)
 
@@ -501,39 +508,39 @@ def _unpack(out, batch):
             for i, k in enumerate(("x", "y", "z"))}
 
 
-def g2_uses_team(name, L, lanes, team=None):
-    """Whether K4 (`name` "g2_add") or K5 ("g2_dbl") runs its split
-    executor over `lanes` lanes at L limbs: below G2_TEAM_BELOW[name][L]
-    (never at a limb count without an entry), unless `team` (True or False)
-    says which."""
+def uses_split(name, L, lanes, team=None):
+    """Whether point kernel `name` (K2 "g1_add", K3 "g1_dbl", K4 "g2_add",
+    K5 "g2_dbl") runs its split executor over `lanes` lanes at L limbs:
+    below SPLIT_BELOW[name][L] (never at a limb count without an entry),
+    unless `team` (True or False) says which."""
     if team is None:
-        return lanes < G2_TEAM_BELOW[name].get(L, 0)
+        return lanes < SPLIT_BELOW[name].get(L, 0)
     return team
 
 
-def _g2_layout(name, L, split):
-    """(threads per team, warps per block) of K4/K5's shipped layout on
-    the split or the lane executor."""
-    kind = 0 if name == "g2_add" else 1
+def _layout(name, L, split):
+    """(threads per team, warps per block) of point kernel `name`'s shipped
+    layout on the split or the lane executor."""
+    grp, kind = name[:2], 0 if name.endswith("_add") else 1
     if split:
-        return team.SPLIT_LAYOUT[L][kind][:2]
-    return team.LAYOUT["g2"][kind]
+        return team.SPLIT_LAYOUT[grp][L][kind][:2]
+    return team.LAYOUT[grp][kind]
 
 
-def g2_grid(name, L, lanes, team=None):
-    """(blocks, threads per block) of K4's or K5's launch over `lanes`
-    lanes at L limbs, in the variant the width rule (or `team`) picks."""
-    split = g2_uses_team(name, L, lanes, team)
-    per, warps = _g2_layout(name, L, split)
+def point_grid(name, L, lanes, team=None):
+    """(blocks, threads per block) of point kernel `name`'s launch over
+    `lanes` lanes at L limbs, in the variant the width rule (or `team`)
+    picks."""
+    split = uses_split(name, L, lanes, team)
+    per, warps = _layout(name, L, split)
     lpb = 32 * warps // per if split else (32 // per) * warps
     return -(-lanes // lpb), 32 * warps
 
 
 def _entry(name, L, lanes, team):
     """The C entry point of point kernel `name` for this launch, and
-    whether it is the split executor's (K4/K5 by G2_TEAM_BELOW, or
-    `team`)."""
-    split = name in G2_TEAM_BELOW and g2_uses_team(name, L, lanes, team)
+    whether it is the split executor's (by SPLIT_BELOW, or `team`)."""
+    split = uses_split(name, L, lanes, team)
     return "kzg_" + name + ("_split" if split else ""), split
 
 
@@ -576,23 +583,27 @@ def _point_dbl(name, G, P, times, team=None):
     return _unpack(out, batch)
 
 
-def g1_add(G, P, Q, reset=None):
+def g1_add(G, P, Q, reset=None, team=None):
     """K2: out = reset ? Q : P + Q per lane (complete add), G1 point dicts
     of (L, *batch) int64 coordinates on the card; reset is a bool tensor of
-    the batch shape or None."""
-    return _point_add("g1_add", G, P, Q, reset)
+    the batch shape or None. The split executor below
+    SPLIT_BELOW["g1_add"][L] lanes, the lane executor from there up;
+    `team` True or False forces one (for timing both; True raises at a
+    limb count without a split layout). Either counts under K2's key."""
+    return _point_add("g1_add", G, P, Q, reset, team)
 
 
-def g1_dbl(G, P, times):
-    """K3: 2^times P per lane, G1 point dict on the card."""
-    return _point_dbl("g1_dbl", G, P, times)
+def g1_dbl(G, P, times, team=None):
+    """K3: 2^times P per lane, G1 point dict on the card; the variant by
+    SPLIT_BELOW["g1_dbl"][L] and `team`, as g1_add."""
+    return _point_dbl("g1_dbl", G, P, times, team)
 
 
 def g2_add(G, P, Q, reset=None, team=None):
     """K4: out = reset ? Q : P + Q per lane (complete add), G2 point dicts
     of (2, L, *batch) int64 coordinates on the card; reset is a bool tensor
     of the batch shape or None. The split executor below
-    G2_TEAM_BELOW["g2_add"][L] lanes, the lane executor from there up;
+    SPLIT_BELOW["g2_add"][L] lanes, the lane executor from there up;
     `team` True or False forces one (for timing both; True raises at a
     limb count without a split layout). Either counts under K4's key."""
     return _point_add("g2_add", G, P, Q, reset, team)
@@ -600,7 +611,7 @@ def g2_add(G, P, Q, reset=None, team=None):
 
 def g2_dbl(G, P, times, team=None):
     """K5: 2^times P per lane, G2 point dict on the card; the variant by
-    G2_TEAM_BELOW["g2_dbl"][L] and `team`, as g2_add."""
+    SPLIT_BELOW["g2_dbl"][L] and `team`, as g2_add."""
     return _point_dbl("g2_dbl", G, P, times, team)
 
 

@@ -8,7 +8,7 @@ BN254, 25 on BLS12-381, 11 on BN158); the formula runs in *levels*. In a
 level every instruction is independent of the others, and the team
 synchronises after it. On the lane executor team rank r executes
 instructions r, r + T, r + 2T, ... (T threads per team, of one warp). On
-the split executor (K4/K5 below ops/cuda.py G2_TEAM_BELOW) a team of T
+the split executor (K2-K5 below ops/cuda.py SPLIT_BELOW) a team of T
 threads runs each product on a sub-team of R ranks, split by product
 columns (the split product of csrc/mont.cuh that K1's lane teams run,
 modelled by k1_team.run), P = T / R products a round, and each linear
@@ -76,13 +76,17 @@ HDR = RANKS + KINDS                  # header words of the table
 # MERGE_WIDE lanes and more (narrower K6 launches take the add's), from
 # team_sweep.py on the H100 (PERF.md)
 LAYOUT = {"g1": ((6, 4), (3, 2), (3, 2)), "g2": ((8, 2), (8, 2), (8, 2))}
-# Split-executor layouts of K4 and K5 per limb count, (threads per team,
-# warps per block, ranks per product) of the add kernel and of the
-# doubling kernel: a team of one warp (W lanes a block) or of a whole
-# block (W = T / 32), R in SPLIT_RANKS dividing T; from team_sweep.py g2 on
-# the H100 (PERF.md, run AD5: 16 products a round of 16 ranks, 5 rounds an
-# add and 3 a doubling, the least time at 1-256 lanes)
-SPLIT_LAYOUT = {25: ((256, 8, 16), (256, 8, 16))}
+# Split-executor layouts per group and limb count, (threads per team,
+# warps per block, ranks per product) of the add kernel (K2/K4) and of the
+# doubling kernel (K3/K5): a team of one warp (W lanes a block) or of a
+# whole block (W = T / 32), R in SPLIT_RANKS dividing T; from team_sweep.py
+# on the H100 (PERF.md). G2, run AD5: 16 products a round of 16 ranks, 5
+# rounds an add and 3 a doubling, the least time at 1-256 lanes. G1, run
+# AE1: its widest level has 6 products (a doubling's 4), so a team of 6
+# products a round of 32 ranks, a warp each (3 rounds an add), and of 4 for
+# the doubling (3 rounds), the least summed time below the width rule
+SPLIT_LAYOUT = {"g1": {25: ((192, 6, 32), (128, 4, 32))},
+                "g2": {25: ((256, 8, 16), (256, 8, 16))}}
 SPLIT_RANKS = (8, 16, 32)            # the R the split kernels are built for
 SPLIT_MAX_THREADS = 288              # team.cuh: a split block, at most
 MERGE_WIDE = 8192
@@ -536,18 +540,19 @@ def _check_split(team, warps, ranks):
 
 
 def split_layout(G):
-    """The shipped split layout of G2 group G (SPLIT_LAYOUT at its base
-    field's limb count); ValueError where there is none."""
-    L = G.F.base.L if G.is_fp2 else None
-    if L not in SPLIT_LAYOUT:
+    """The shipped split layout of group G (SPLIT_LAYOUT of its group at
+    its base field's limb count); ValueError where there is none."""
+    grp, L = ("g2", G.F.base.L) if G.is_fp2 else ("g1", G.F.L)
+    if L not in SPLIT_LAYOUT[grp]:
         raise ValueError(f"{G.name}: no split-executor layout at {L} limbs "
-                         f"(SPLIT_LAYOUT: {sorted(SPLIT_LAYOUT)})")
-    return SPLIT_LAYOUT[L]
+                         f"(SPLIT_LAYOUT[{grp!r}]: "
+                         f"{sorted(SPLIT_LAYOUT[grp])})")
+    return SPLIT_LAYOUT[grp][L]
 
 
 def split_table(G, layout=None):
-    """The table of the split executor (K4/K5) for G2 group G: the same
-    schedules leveled for P = T / R products a round, under `layout` =
+    """The table of the split executor (K2/K3 or K4/K5) for group G: the
+    same schedules leveled for P = T / R products a round, under `layout` =
     ((threads per team, warps per block, ranks per product) of the add
     kernel, the same of the doubling kernel), default split_layout(G). The
     merge kind's words repeat the add's (K6 runs the lane executor)."""
@@ -587,7 +592,7 @@ def block(G, layout=None):
 
 
 def split_block(G, layout=None):
-    """What the split K4/K5 kernels read behind the constants: rows(G),
+    """What the split K2-K5 kernels read behind the constants: rows(G),
     then split_table(G, layout)."""
     return rows(G) + list(split_table(G, layout))
 

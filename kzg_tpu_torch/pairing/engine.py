@@ -217,7 +217,11 @@ class PairingEngine:
                 f = t12.mul_sparse(f, terms)
         if self.loop_neg:
             f = t12.conj_s(f)
-            T = g2.neg(T)
+            # T's y is a lazy sum of two Fp2 products (components up to
+            # 5.6 p each, so up to 11.2 p): the exact subtraction needs 16 p
+            # of slack, not Curve.neg's 8 p, or it borrows past R for the
+            # few T whose y exceeds 8 p and the check goes false
+            T = {"x": T["x"], "y": self.f2.neg(T["y"], k=16), "z": T["z"]}
         if self.cp.family == "bn":
             Q1 = self._psi(Q)
             nQ2 = g2.neg(self._psi(Q1))

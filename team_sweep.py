@@ -10,12 +10,12 @@ widths the main and msm paths launch (K6: the 13 levels of a 4097-point
 merge msm, 32 x 1 to 32 x 4096 lanes). `--limbs 25` (or 11) runs the G1
 or G2 kernels of BLS12-381 (BN158) instead of BN254's 17 limbs; a layout
 of three numbers (threads per team, warps per block, ranks per product)
-runs K4/K5 on the split executor (team.split_block), and then the sweep
-also times the shipped lane layout at the same widths, gives each
-layout's summed time below the shipped width rule (below_rule_ms) and
-prints, per kernel, the split layout of the least summed time below
-G2_NARROW lanes and the widths at which the lane executor is as fast
-(g2_picks). K1 runs the team table of each
+runs K2/K3 or K4/K5 on the split executor (team.split_block), and then the
+sweep also times the shipped lane layouts (team.LAYOUT) at the same
+widths, gives each layout's summed time below the shipped width rule
+(below_rule_ms) and prints, per kernel, the split layout of the least
+summed time below NARROW lanes and the widths at which the lane executor
+is as fast (split_picks). K1 runs the team table of each
 layout (kzg_tpu_torch/ops/k1_team.py) at 17, 25 and 11 limbs (BN254's,
 BLS12-381's and BN158's Fp, lazy limbs up to 2^22, the last 64 lanes at
 the point formulas' widest operands on BLS12-381 and BN158) at
@@ -27,9 +27,9 @@ variant is as fast.
 
     python3 team_sweep.py [g1|g2|merge|merge-g2|k1] [--limbs L]
                           [T,W ... | T,W,R ...]
-        (default: g1 with 3,2 4,2 4,4 6,2 6,4 8,2 16,2;
-         g2 with 6,2 8,2 8,4 12,2 16,2, at 25 limbs the split layouts
-         SPLIT_DEFAULT; merge with 3,2 6,2 6,4;
+        (default: g1 with 3,2 4,2 4,4 6,2 6,4 8,2 16,2, at 25 limbs the
+         split layouts SPLIT_DEFAULT["g1"]; g2 with 6,2 8,2 8,4 12,2 16,2,
+         at 25 limbs SPLIT_DEFAULT["g2"]; merge with 3,2 6,2 6,4;
          merge-g2 with 8,2 8,4 16,2; k1 with 4,4 8,1 8,2 8,4 16,2
          16,4 32,1 32,2)
 
@@ -49,14 +49,21 @@ import chip_smoke as cs
 
 ADD_LANES = (1, 32, 512, 2048, 5000, 80000)
 DBL_SHAPES = ((1, 8), (32, 8), (5000, 8))
-# K4/K5 on the split executor: the widths around the width rule too
-SPLIT_ADD_LANES = (1, 32, 128, 256, 512, 768, 1024, 2048, 4096, 5000, 8192,
-                   10000, 20000)
+# K2-K5 on the split executor: the widths around the width rule too
+SPLIT_ADD_LANES = (1, 32, 128, 256, 512, 768, 1024, 1056, 1536, 2048, 4096,
+                   5000, 8192, 10000, 20000)
 SPLIT_DBL_SHAPES = ((1, 8), (32, 8), (512, 8), (1024, 8), (2048, 8),
                     (5000, 8), (10000, 8))
-G2_NARROW = 8192
-SPLIT_DEFAULT = [(64, 2, 16), (128, 4, 16), (192, 6, 16), (256, 8, 8),
-                 (256, 8, 16), (256, 8, 32), (288, 9, 16)]
+NARROW = 8192
+# G1: whole-block teams of 6 products a round (3 rounds an add), of 4 and 8
+# (a doubling's widest level has 4), and one-warp teams of 4 products a
+# round, W lanes a block; G2: 16 products a round and its neighbours
+SPLIT_DEFAULT = {
+    "g1": [(96, 3, 16), (192, 6, 32), (192, 6, 16), (64, 2, 16),
+           (128, 4, 32), (128, 4, 16), (32, 1, 8), (32, 2, 8), (32, 4, 8),
+           (32, 8, 8)],
+    "g2": [(64, 2, 16), (128, 4, 16), (192, 6, 16), (256, 8, 8),
+           (256, 8, 16), (256, 8, 32), (288, 9, 16)]}
 CURVES = {17: "BN254", 25: cs.BLS, 11: cs.BN158}
 MERGE_LANES = tuple(32 << j for j in range(13))
 # K1: the pairing's stacked Fp2 products (108 lanes a pair), the NTT
@@ -84,7 +91,7 @@ def main(argv):
     if argv[:1] == ["--limbs"]:
         L, argv = int(argv[1]), argv[2:]
     layouts = [tuple(int(v) for v in a.split(",")) for a in argv] or (
-        SPLIT_DEFAULT if grp == "g2" and L in team.SPLIT_LAYOUT
+        SPLIT_DEFAULT[grp] if L in team.SPLIT_LAYOUT.get(grp, {})
         else DEFAULT[grp])
     dev = torch.device("cuda", 0)
     t0 = time.time()
@@ -112,64 +119,69 @@ def main(argv):
     else:
         timed = sweep_ops(ctx, G, P0, Q0, split)
     rows = {}
-    if split:                    # the shipped lane layout beside them
-        layouts = [team.LAYOUT["g2"][0]] + layouts
+    if split:                    # the shipped lane layouts beside them
+        layouts = ["lane"] + layouts
     for tw in layouts:
-        if len(tw) == 3:
+        if tw == "lane":
+            G._kernel_consts = cuda._u32(consts)
+            words = team.table(G)
+        elif len(tw) == 3:
             G._kernel_split_consts = cuda._u32(
                 prefix + team.split_block(G, (tw, tw)))
             words = team.split_table(G, (tw, tw))
         else:
             G._kernel_consts = cuda._u32(prefix + team.block(G, (tw, tw, tw)))
             words = team.table(G, (tw, tw, tw))
-        rows[tw] = timed(tw, len(tw) == 3 if split else None)
-        row = {"group": grp, "limbs": L, "team": tw[0], "warps": tw[1],
-               "ranks": tw[2] if len(tw) == 3 else 1,
-               "slots": [words[2], words[5]], "rounds": team.rounds(words),
-               **rows[tw]}
+        rows[tw] = timed(tw, (tw != "lane" and len(tw) == 3) if split
+                         else None)
+        row = {"group": grp, "limbs": L, "team": words[0],
+               "warps": words[1], "ranks": words[team.RANKS],
+               "dbl_layout": words[3:5], "slots": [words[2], words[5]],
+               "rounds": team.rounds(words), **rows[tw]}
         if split:
-            row["below_rule_ms"] = below_rule(rows[tw], L)
+            row["below_rule_ms"] = below_rule(rows[tw], grp, L)
         print(json.dumps({"layout": row, "card": card}), flush=True)
     G._kernel_consts = cuda._u32(consts)
     G._kernel_split_consts = None
     if split:
-        print(json.dumps({"g2_picks": g2_picks(rows, layouts[0]),
-                          "card": card}), flush=True)
+        print(json.dumps({"split_picks": split_picks(rows, "lane"),
+                          "group": grp, "card": card}), flush=True)
     print(json.dumps({"shipped": {"layout": team.LAYOUT,
                                   "split_layout": team.SPLIT_LAYOUT,
-                                  "team_below": cuda.G2_TEAM_BELOW},
+                                  "split_below": cuda.SPLIT_BELOW},
                       "seconds": time.time() - t0}), flush=True)
     return 0
 
 
-def below_rule(row, L):
+def below_rule(row, grp, L):
     """Per kernel (add, dbl) of a layout's row: its summed ms at the swept
-    widths below the shipped width rule at L limbs (G2_NARROW where the
-    rule has no entry)."""
+    widths below the shipped width rule of group `grp` at L limbs (NARROW
+    where the rule has no entry)."""
     from kzg_tpu_torch.ops import cuda
     out = {}
     for kern in ("add", "dbl"):
-        rule = cuda.G2_TEAM_BELOW[f"g2_{kern}"].get(L, G2_NARROW)
+        rule = cuda.SPLIT_BELOW[f"{grp}_{kern}"].get(L, NARROW)
         out[kern] = sum(ms for w, ms in row[kern].items()
                         if int(str(w).split("x")[0]) < rule)
     return out
 
 
-def g2_picks(rows, lane):
+def split_picks(rows, lane):
     """Per kernel (add, dbl): the split layout whose shipping below the
-    widths where the lane layout `lane` is as fast costs least, summed over
-    the swept widths below G2_NARROW lanes (sum of min(split, lane) ms),
-    that sum, the lane layout's alone, and the widths at which the lane
-    layout is as fast as the pick."""
+    widths where the lane executor (row `lane`) is as fast costs least,
+    summed over the swept widths below NARROW lanes (sum of min(split,
+    lane) ms), that sum, the lane executor's alone, and the widths at
+    which the lane executor is as fast as the pick."""
     picks = {}
     for kern in ("add", "dbl"):
         narrow = [w for w in rows[lane][kern]
-                  if int(str(w).split("x")[0]) < G2_NARROW]
+                  if int(str(w).split("x")[0]) < NARROW]
 
         def cost(tw):
             return sum(min(rows[tw][kern][w], rows[lane][kern][w])
                        for w in narrow)
-        best = min((tw for tw in rows if len(tw) == 3), key=cost)
+        best = min((tw for tw in rows if tw != lane and len(tw) == 3),
+                   key=cost)
         picks[kern] = {
             "layout": best, "split_sum_ms": cost(best),
             "lane_sum_ms": sum(rows[lane][kern][w] for w in narrow),
@@ -248,8 +260,8 @@ def sweep_k1(dev, layouts, t0):
 def sweep_ops(ctx, G, P0, Q0, split=False):
     """K2/K3 or K4/K5: the plain results, and a function that holds both
     kernels against them under the layout uploaded, on the variant `team`
-    (K4/K5: True the split executor, False the lane one; None the width
-    rule), and times them; with `split`, at the split widths."""
+    (True the split executor, False the lane one; None the width rule),
+    and times them; with `split`, at the split widths."""
     from kzg_tpu_torch.ops import cuda
     grp = "g2" if G.is_fp2 else "g1"
     add, dbl = getattr(cuda, f"{grp}_add"), getattr(cuda, f"{grp}_dbl")

@@ -21,17 +21,20 @@ products past 64 p; there both groups are held to the plain version's own
 product inputs and to a b < R p (BN158_AB below). test_torch_groups.py ties
 the plain versions to kzg_tpu on BN254.
 
-The split executor of K4/K5 (BLS12-381's 25 limbs below
-cuda.G2_TEAM_BELOW: each product split over R ranks by columns, the
+The split executor of K2-K5 (BLS12-381's 25 limbs below
+cuda.SPLIT_BELOW: each product split over R ranks by columns, the
 schedule leveled for the products a round) runs on team.split_block; the
-bls-split cases run its model (team.run with k1_team.run's split product)
-at the same bounds and hold it limb for limb against the lane executor's
-model, and as canonical points against kzg_tpu's own G2 add on
+bls-split cases (G2) and the bls-g1 cases (G1, beside the lane executor's
+model) run its model (team.run with k1_team.run's split product) at the
+same bounds and hold it limb for limb against the lane executor's model,
+and as canonical points against kzg_tpu's own add of the group on
 BLS12-381 (jitted once per shape): the add with the reset select, and the
 doubling chain against that complete add of P + P, `times` times
 (kzg_tpu's dbl would compile another ~12 s of eager JAX on a CPU, past
-the port's test time budget). The wrapper's choice between the two C entry points by width
-runs through a fake library (test_g2_wrapper_picks_the_variant_by_width).
+the port's test time budget). The wrapper's choice between the two C
+entry points by width runs through a fake library
+(test_g2_wrapper_picks_the_variant_by_width, every kernel of the width
+rule).
 """
 
 import ctypes
@@ -43,7 +46,7 @@ import numpy as np
 import pytest
 import torch
 
-from kzg_tpu.context import make_g2
+from kzg_tpu.context import make_g1, make_g2
 from kzg_tpu.curves.params import get_curve as jax_curve
 from kzg_tpu_torch.context import get_context
 from kzg_tpu_torch.ops import cuda, team
@@ -162,10 +165,10 @@ _XLA_QUICK = {"xla_backend_optimization_level": 0,
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_g2(curve):
-    """kzg_tpu's G2 of `curve` and its add, compiled once per shape (later
-    adds of the same shapes reuse it)."""
-    jJ = make_g2(jax_curve(curve))
+def _jax_group(grp, curve):
+    """kzg_tpu's G1 or G2 (`grp`) of `curve` and its add, compiled once
+    per shape (later adds of the same shapes reuse it)."""
+    jJ = (make_g2 if grp == "g2" else make_g1)(jax_curve(curve))
     compiled = {}
 
     def add(P, Q):
@@ -215,7 +218,7 @@ BN158_AB = Fraction(1, 10)
     pytest.param("g1", True, "BN254", False, id="g1-True"),
     pytest.param("g2", True, "BLS12381", False, id="bls-True"),
     pytest.param("g2", True, "BLS12381", True, id="bls-split-True"),
-    pytest.param("g1", True, "BLS12381", False, id="bls-g1-True"),
+    pytest.param("g1", True, "BLS12381", True, id="bls-g1-True"),
     pytest.param("g2", True, "BN158", False, id="bn158-True"),
     pytest.param("g1", True, "BN158", False, id="bn158-g1-True")])
 def test_add_schedule_matches_plain(grp, with_reset, curve, split,
@@ -224,7 +227,7 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, split,
     (BLS_G1_ADD_AB: the output bound 2.15 p derived above), and the
     widest one must reach past R p, as the derivation says it can. The
     split executor's block gives the lane executor's limbs and kzg_tpu's
-    points."""
+    points, and both executors' product inputs are held to the bounds."""
     J, og, P, Q, pts, qts = _batch(grp, curve)
     reset = torch.tensor([i % 3 == 1 for i in range(N)]) if with_reset \
         else None
@@ -235,10 +238,12 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, split,
                               lambda: J._add_plain(P, Q), monkeypatch)
     if reset is not None:
         want = J.select(reset, Q, want)
-    extra = ()
+    extra, runs = (), [stats]
     if split:
-        assert _same_limbs(got, team.plain_add(J, P, Q, reset))
-        jJ, add = _jax_g2(curve)
+        runs.append({})
+        assert _same_limbs(got, team.plain_add(J, P, Q, reset,
+                                               stats=runs[-1]))
+        jJ, add = _jax_group(grp, curve)
         extra = (_from_jax(jJ.select(reset.numpy(), _jax(Q),
                                      add(_jax(P), _jax(Q)))),)
     packed, ref, *jax_ref = _packed(J, got, want, *extra)
@@ -249,14 +254,15 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, split,
         sums = [b if s else c for b, s, c in zip(qts, reset.tolist(), sums)]
     assert J.unpack_affine(packed) == sums
     _fresh(J, got)
-    if curve == "BLS12381" and grp == "g1":
-        _check_bounds(grp, J, stats, plain, BLS_G1_ADD_AB)
-        R = 1 << (16 * J.F.L)
-        assert plain["ab"] > R * J.F.modulus
-        assert stats["value"] > 2900 * J.F.modulus
-    else:
-        _check_bounds(grp, J, stats, plain,
-                      BN158_AB if curve == "BN158" else 1)
+    for st in runs:
+        if curve == "BLS12381" and grp == "g1":
+            _check_bounds(grp, J, st, plain, BLS_G1_ADD_AB)
+            R = 1 << (16 * J.F.L)
+            assert min(plain["ab"], st["ab"]) > R * J.F.modulus
+            assert st["value"] > 2900 * J.F.modulus
+        else:
+            _check_bounds(grp, J, st, plain,
+                          BN158_AB if curve == "BN158" else 1)
 
 
 @pytest.mark.parametrize("grp,times,curve,split", [
@@ -266,12 +272,13 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, split,
     pytest.param("g1", 3, "BN254", False, id="g1-3"),
     pytest.param("g2", 3, "BLS12381", False, id="bls-3"),
     pytest.param("g2", 3, "BLS12381", True, id="bls-split-3"),
-    pytest.param("g1", 3, "BLS12381", False, id="bls-g1-3"),
+    pytest.param("g1", 3, "BLS12381", True, id="bls-g1-3"),
     pytest.param("g2", 3, "BN158", False, id="bn158-3"),
     pytest.param("g1", 3, "BN158", False, id="bn158-g1-3")])
 def test_dbl_schedule_matches_plain(grp, times, curve, split, monkeypatch):
     """The split executor's block gives the lane executor's limbs and
-    kzg_tpu's G2 add of P + P, `times` times."""
+    kzg_tpu's add of P + P, `times` times; both executors' product inputs
+    are held to the bounds."""
     J, og, P, _, pts, _ = _batch(grp, curve)
     stats = {}
     got = team.plain_dbl(J, P, times, stats=stats,
@@ -285,19 +292,21 @@ def test_dbl_schedule_matches_plain(grp, times, curve, split, monkeypatch):
 
     want, plain = _plain_once(("dbl", grp, curve, times), J, chain,
                               monkeypatch)
-    extra = ()
+    extra, runs = (), [stats]
     if split:
-        assert _same_limbs(got, team.plain_dbl(J, P, times))
+        runs.append({})
+        assert _same_limbs(got, team.plain_dbl(J, P, times, stats=runs[-1]))
         A = _jax(P)
         for _ in range(times):
-            A = _jax_g2(curve)[1](A, A)
+            A = _jax_group(grp, curve)[1](A, A)
         extra = (_from_jax(A),)
     packed, ref, *jax_ref = _packed(J, got, want, *extra)
     assert torch.equal(packed, ref)
     assert all(torch.equal(packed, r) for r in jax_ref)
     assert J.unpack_affine(packed) == [og.mul(1 << times, a) for a in pts]
     _fresh(J, got)
-    _check_bounds(grp, J, stats, plain, BN158_AB if curve == "BN158" else 1)
+    for st in runs:
+        _check_bounds(grp, J, st, plain, BN158_AB if curve == "BN158" else 1)
 
 
 def _fits(w):
@@ -382,36 +391,46 @@ def _fit_at(curve, L, rounds, lifts):
 def test_tables_fit_the_kernel_at_25_limbs():
     """BLS12-381 (Fp of 25 limbs): both groups' tables fit the kernels'
     image with BN254's rounds (the table does not depend on L), with G1's
-    slacks the lifts' m p (m = 247 and 266). G2's split table (K4/K5 below
-    the width rule) fits too: the same instructions leveled for P = T / R
-    products a round (5 rounds an add at 18, the least its five product
-    levels allow, and 3 a doubling), the layout and R in its header, the
-    shared memory of split_prepare within a block's, and a layout that
-    split_prepare refuses raises here (its shared memory: the rows, the
-    padded p, the table's 768 words, the slots and each sub-team's operand
-    rows)."""
+    slacks the lifts' m p (m = 247 and 266). Each group's split table
+    (K2-K5 below the width rule) fits too: the same instructions leveled
+    for P = T / R products a round (G2: 5 rounds an add at 16, the least
+    its five product levels allow, and 3 a doubling; G1: 3 rounds an add,
+    6 | 6 | 3 products at 6 a round, and 3 a doubling, 4 | 3 | 2 at 4),
+    the layout and R in its header, the shared memory of split_prepare
+    within a block's, and a layout that split_prepare refuses raises here
+    (its shared memory: the rows, the padded p, the table's 768 words, the
+    slots and each sub-team's operand rows). A group without a split
+    layout at its limb count (BN254) raises."""
     ctx = _fit_at("BLS12381", 25, ([3, 1, 3, 1], [7, 1, 4, 1]), [247, 266])
-    J, L = ctx.g2, 25
-    lane, w = team.table(J), team.split_table(J)
-    _fits(w)
-    layout = team.SPLIT_LAYOUT[L]
-    assert [tuple(w[3 * k:3 * k + 2]) + (w[team.RANKS + k],)
-            for k in range(team.KINDS)] == [layout[0], layout[1], layout[0]]
-    assert [lane[team.RANKS + k] for k in range(team.KINDS)] == [1, 1, 1]
-    assert team.rounds(w) == [5, 1, 3, 1]
-    assert w[team.INSTRS] == lane[team.INSTRS]
-    for k, (per, warps, ranks) in enumerate(layout):
-        pz = 3 * L + 31                  # team.cuh SPLIT_PZ, SPLIT_ROW
-        rows = per // ranks * (L + pz)
-        smem = 4 * (team.ROWS * L + pz + 768
-                    + (w[3 * k + 2] * L + rows) * 32 * warps // per)
-        assert smem <= 232448
-    for bad in ((48, 2, 16), (64, 1, 16), (32, 2, 12), (96, 3, 64),
-                (320, 10, 16)):
-        with pytest.raises(ValueError, match="split layout"):
-            team.split_table(J, (bad, layout[1]))
-    with pytest.raises(ValueError, match="no split-executor layout"):
-        team.split_table(get_context("BN254", "cpu").g2)
+    L = 25
+    for J, grp, rounds in ((ctx.g1, "g1", [3, 1, 3, 1]),
+                           (ctx.g2, "g2", [5, 1, 3, 1])):
+        lane, w = team.table(J), team.split_table(J)
+        _fits(w)
+        layout = team.SPLIT_LAYOUT[grp][L]
+        assert team.split_layout(J) == layout
+        assert [tuple(w[3 * k:3 * k + 2]) + (w[team.RANKS + k],)
+                for k in range(team.KINDS)] == [layout[0], layout[1],
+                                                layout[0]]
+        assert [lane[team.RANKS + k] for k in range(team.KINDS)] == [1, 1, 1]
+        assert team.rounds(w) == rounds
+        assert w[team.INSTRS] == lane[team.INSTRS]
+        for k, (per, warps, ranks) in enumerate(layout):
+            pz = 3 * L + 31              # team.cuh SPLIT_PZ, SPLIT_ROW
+            rows = per // ranks * (L + pz)
+            smem = 4 * (team.ROWS * L + pz + 768
+                        + (w[3 * k + 2] * L + rows) * 32 * warps // per)
+            assert smem <= 232448
+        for bad in ((48, 2, 16), (64, 1, 16), (32, 2, 12), (96, 3, 64),
+                    (320, 10, 16), (32, 10, 8)):
+            with pytest.raises(ValueError, match="split layout"):
+                team.split_table(J, (bad, layout[1]))
+            with pytest.raises(ValueError, match="split layout"):
+                team.split_table(J, (layout[0], bad))
+    bn = get_context("BN254", "cpu")
+    for J in (bn.g1, bn.g2):
+        with pytest.raises(ValueError, match="no split-executor layout"):
+            team.split_table(J)
 
 
 def test_tables_fit_the_kernel_at_11_limbs():
@@ -442,8 +461,11 @@ def test_kernel_constants_refuse_unencoded_branches():
                           (ctx.g2, cuda._g2_consts)):
             B = J.F.base if J.is_fp2 else J.F
             assert consts(J)[2 * B.L + 1:] == team.block(J)
-    J = get_context("BLS12381", "cpu").g2
-    assert cuda._g2_consts(J, split=True)[51:] == team.split_block(J)
+    bls = get_context("BLS12381", "cpu")
+    assert cuda._g2_consts(bls.g2, split=True)[51:] == \
+        team.split_block(bls.g2)
+    assert cuda._g1_consts(bls.g1, split=True)[51:] == \
+        team.split_block(bls.g1)
     ctx = get_context("BN158", "cpu")
     with pytest.raises(ValueError, match="9b > 15"):
         cuda._g1_consts(Curve(ctx.fp, 3, name="b1"))
@@ -451,23 +473,26 @@ def test_kernel_constants_refuse_unencoded_branches():
         cuda._g2_consts(Curve(Fp2(ctx.fp, 3), (156, 39), name="qnr3"))
 
 
-class _FakeG2:
-    """Stands in for g2_ops at 25 limbs: records the entry point and the
-    constant block it reads back from the raw pointer, and, on launches of
-    at most N lanes, reads the coordinates and the reset mask back too and
-    writes the outputs of team.plain_add / plain_dbl (the lane executor's
-    model) to `out` (wider launches: the routing alone, on the CPU's
-    time)."""
+class _FakePoint:
+    """Stands in for g1_ops or g2_ops (by G's group) at 25 limbs: records
+    the entry point and the constant block it reads back from the raw
+    pointer, and, on launches of at most N lanes, reads the coordinates and
+    the reset mask back too and writes the outputs of team.plain_add /
+    plain_dbl (the lane executor's model) to `out` (wider launches: the
+    routing alone, on the CPU's time). Its kzg_* attributes are the four
+    entry points of the group, lane and split."""
 
     def __init__(self, G):
         self.G, self.calls = G, []
-        self.L = G.F.base.L
+        self.L = G.F.base.L if G.is_fp2 else G.F.L
+        self.lead = (2, self.L) if G.is_fp2 else (self.L,)
 
     def _point(self, ptrs, lanes):
-        L = self.L
+        n = int(np.prod(self.lead)) * lanes
         return {k: torch.from_numpy(np.ctypeslib.as_array(
-            (ctypes.c_int64 * (2 * L * lanes)).from_address(p)).reshape(
-                2, L, lanes).copy()) for k, p in zip(("x", "y", "z"), ptrs)}
+            (ctypes.c_int64 * n).from_address(p)).reshape(
+                self.lead + (lanes,)).copy())
+            for k, p in zip(("x", "y", "z"), ptrs)}
 
     def _block(self, consts):
         words = ctypes.cast(consts, ctypes.POINTER(ctypes.c_uint32))
@@ -503,47 +528,50 @@ class _FakeG2:
             self.G, self._point((px, py, pz), lanes), times))
         return 0
 
-    def kzg_g2_add(self, *a):
-        return self._add("kzg_g2_add", *a)
-
-    def kzg_g2_add_split(self, *a):
-        return self._add("kzg_g2_add_split", *a)
-
-    def kzg_g2_dbl(self, *a):
-        return self._dbl("kzg_g2_dbl", *a)
-
-    def kzg_g2_dbl_split(self, *a):
-        return self._dbl("kzg_g2_dbl_split", *a)
+    def __getattr__(self, entry):
+        grp = "g2" if self.G.is_fp2 else "g1"
+        for op in ("add", "dbl"):
+            if entry in (f"kzg_{grp}_{op}", f"kzg_{grp}_{op}_split"):
+                fn = self._add if op == "add" else self._dbl
+                return lambda *a: fn(entry, *a)
+        raise AttributeError(entry)
 
 
 def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
-    """On BLS12-381 (25 limbs), just below G2_TEAM_BELOW[name][25] lanes
-    cuda.g2_add and cuda.g2_dbl call the split entry point with the split
-    block (team.split_block), at that width the lane entry point with
+    """On BLS12-381 (25 limbs), for every kernel of the width rule (K2-K5),
+    just below SPLIT_BELOW[name][25] lanes cuda.g1_add / g1_dbl / g2_add /
+    g2_dbl call the split entry point with the split block
+    (team.split_block), at that width the lane entry point with
     team.block, `team` True or False forces either at one lane, each from
-    the library built at 25 limbs, each launch counted once under the
-    kernel's 25-limb key; at one lane the outputs are the model's limbs
-    (held to the plain versions above). g2_grid gives each variant's
-    launch. BN254 (17 limbs) has no split layout: a forced split raises."""
+    its group's library built at 25 limbs, each launch counted once under
+    the kernel's 25-limb key; at one lane the outputs are the model's
+    limbs (held to the plain versions above). point_grid gives each
+    variant's launch. BN254 (17 limbs) has no split layout: a forced split
+    raises in either group."""
     monkeypatch.setattr(cuda, "_stream", lambda: None)
     monkeypatch.setattr(cuda, "_require", lambda *a, **k: None)
-    J, og, P0, Q0, pts, qts = _batch("g2", "BLS12381")
     L = 25
-    fake = _FakeG2(J)
+    fakes = {grp: _FakePoint(_batch(grp, "BLS12381")[0])
+             for grp in ("g1", "g2")}
     asked = []
 
     def lib(source, limbs=cuda.BASE_L):
         asked.append((source, limbs))
-        return fake
+        return fakes[source[:2]]
 
     monkeypatch.setattr(cuda, "_lib", lib)
-    blocks = {True: team.split_block(J), False: team.block(J)}
 
     def tiled(X, n):
-        return {k: v.repeat(1, 1, -(-n // N))[..., :n].contiguous()
-                for k, v in X.items()}
+        return {k: v.repeat(*[1] * (v.ndim - 1), -(-n // N))[..., :n]
+                .contiguous() for k, v in X.items()}
 
-    for name, below in cuda.G2_TEAM_BELOW.items():
+    assert sorted(cuda.SPLIT_BELOW) == ["g1_add", "g1_dbl", "g2_add",
+                                        "g2_dbl"]
+    for name, below in cuda.SPLIT_BELOW.items():
+        grp = name[:2]
+        J, og, P0, Q0, pts, qts = _batch(grp, "BLS12381")
+        fake = fakes[grp]
+        blocks = {True: team.split_block(J), False: team.block(J)}
         key = cuda.kernel_key(name, L)
         for lanes, team_arg, split in ((below[L] - 1, None, True),
                                        (below[L], None, False),
@@ -551,28 +579,30 @@ def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
             P, Q = tiled(P0, lanes), tiled(Q0, lanes)
             reset = torch.arange(lanes) % 3 == 1
             before = cuda.counts()
-            if name == "g2_add":
-                got = cuda.g2_add(J, P, Q, reset, team=team_arg)
+            if name.endswith("_add"):
+                got = getattr(cuda, name)(J, P, Q, reset, team=team_arg)
             else:
-                got = cuda.g2_dbl(J, P, 1, team=team_arg)
+                got = getattr(cuda, name)(J, P, 1, team=team_arg)
             after = cuda.counts()
             entry = "kzg_" + name + ("_split" if split else "")
             assert fake.calls[-1] == (entry, L, blocks[split])
-            assert asked[-1] == ("g2_ops", L)
+            assert asked[-1] == (f"{grp}_ops", L)
             assert {k: after[k] - before[k] for k in after
                     if after[k] != before[k]} == {key: 1}
             if lanes > N:
                 continue
             assert _same_limbs(got, team.plain_add(J, P, Q, reset)
-                               if name == "g2_add" else
+                               if name.endswith("_add") else
                                team.plain_dbl(J, P, 1))
-        per, warps, _ = team.SPLIT_LAYOUT[L][name == "g2_dbl"]
-        assert cuda.g2_grid(name, L, below[L] - 1) == (
+        kind = name.endswith("_dbl")
+        per, warps, _ = team.SPLIT_LAYOUT[grp][L][kind]
+        assert cuda.point_grid(name, L, below[L] - 1) == (
             -(-(below[L] - 1) * per // (32 * warps)), 32 * warps)
-        lane = team.LAYOUT["g2"][name == "g2_dbl"]
-        assert cuda.g2_grid(name, L, below[L]) == (
+        lane = team.LAYOUT[grp][kind]
+        assert cuda.point_grid(name, L, below[L]) == (
             -(-below[L] // (32 // lane[0] * lane[1])), 32 * lane[1])
-    bn = get_context("BN254", "cpu").g2
-    with pytest.raises(ValueError, match="no split-executor layout"):
-        cuda.g2_add(bn, *[{k: v[:, :, :1] for k, v in X.items()}
-                          for X in (P0, Q0)], team=True)
+    bn = get_context("BN254", "cpu")
+    for J, fn in ((bn.g1, cuda.g1_add), (bn.g2, cuda.g2_add)):
+        one = J.encode_points([None])
+        with pytest.raises(ValueError, match="no split-executor layout"):
+            fn(J, one, one, team=True)

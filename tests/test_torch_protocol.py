@@ -78,6 +78,31 @@ def test_golden_verify_and_refute(golden):
                                kzg.blob.from_string(bad[off:off + ln], off))
 
 
+def test_pairing_check_holds_when_the_miller_point_has_a_wide_y():
+    """e([a] G2, [b] G1) == e(G2, [a b] G1) holds for the scalars of a
+    storage proof of the demo's document (a = Z(s), b = q(s)), whose Miller
+    loop ends with T's lazy y past 8 p. BN254's loop scalar 6u + 2 is
+    negative, so T is negated before the two Frobenius steps; a negation
+    with 8 p of slack borrowed there and refuted the valid proof (as
+    kzg_tpu's engine, which shares that negation, still does). Points come
+    from the python oracle."""
+    from kzg_tpu_torch.pairing.engine import PairingEngine
+    from kzg_tpu_torch.refmodel.model import G1, G2
+    cp = get_curve("BN254")
+    ctx = get_context("BN254", device="cpu")
+    eng = PairingEngine(ctx)
+    og1, og2 = G1(cp), G2(cp)
+    a = 0xcec23b30e5aa9b7002b56f7d78b69328d4e78a1a48f4aef87bbabde122eff85
+    b = 0x36d35d02275fee6ea216b78cf066f9e975a17ffadedbaf1521e48c2f34b49ff
+
+    def pt(G, P):
+        return {k: v[..., 0] for k, v in G.encode_points([P]).items()}
+
+    Qa, Pa = pt(ctx.g2, og2.mul(a, og2.gen)), pt(ctx.g1, og1.mul(b, og1.gen))
+    Qb, Pb = pt(ctx.g2, og2.gen), pt(ctx.g1, og1.mul(a * b % cp.r, og1.gen))
+    assert bool(eng.pairing_check(Qa, Pa, Qb, Pb).item())
+
+
 def test_from_secret_exports_golden_file(golden, tmp_path):
     """Setup generation (the comb, with its oracle self-check) reproduces
     the golden setup file byte for byte."""
