@@ -133,7 +133,9 @@ mismatch or exception exits non-zero before the result line):
                kernels line with its own launches, and the split executor
                must have run); K6 also
                timed from a merge level's stride-2 halves, the wrapper's
-               copies included (halves_ms, halves_path_ms).
+               copies included (halves_ms, halves_path_ms), and at 25
+               limbs (team.MERGE_DIGITS: products on 32-bit digits) its
+               raw output limb for limb against team.plain_merge's.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 
     python3 chip_smoke.py --main-only
@@ -1850,8 +1852,10 @@ def merge_sweep(paths, ctx, G, base_p, base_q, bound, errs, gen):
     newR) with random masks, then timed from contiguous inputs (ms, the
     kernel alone) and from the stride-2 halves of interleaved sums, as a
     merge level gives them (halves_ms: the wrapper's call, with whatever
-    copies it makes)."""
-    from kzg_tpu_torch.ops import cuda
+    copies it makes). At a limb count of team.MERGE_DIGITS, where K6's
+    products run on 32-bit digits, its raw output is also held limb for
+    limb against team.plain_merge's, the digit product's CPU model."""
+    from kzg_tpu_torch.ops import cuda, team
     from kzg_tpu_torch.ops.msm import MSMEngine
     grp = "g2" if G.is_fp2 else "g1"
     comps, add_muls, _ = point_muls(G)
@@ -1870,6 +1874,11 @@ def merge_sweep(paths, ctx, G, base_p, base_q, bound, errs, gen):
         a = torch.cat([G.affine_packed(P) for P in got], dim=-1)
         b = torch.cat([G.affine_packed(P) for P in want], dim=-1)
         err = (a - b).abs().max().item()
+        if L in team.MERGE_DIGITS:
+            raw = team.plain_merge(G, aL, aR, bL, bR, *masks)
+            err = max([err] + [(x[c] - y[c]).abs().max().item()
+                               for x, y in zip(got, raw)
+                               for c in ("x", "y", "z")])
         errs[name] = max(errs[name], err)
         check(err == 0, f"{name} at {lanes}: kernel != plain (max {err})")
         ms = kernel_ms(lambda: cuda.merge_combine(G, aL, aR, bL, bR, *masks))

@@ -30,11 +30,17 @@ namespace kzg {
 constexpr int L = KZG_L;           // limbs per field element
 constexpr uint32_t MASK16 = 0xFFFFu;
 
+constexpr int D32 = (L + 1) / 2;   // 32-bit digits of an element (the
+                                   // digit product below)
+
 // Modulus constants, passed by value as a kernel parameter (constant bank).
 struct Mod {
   uint32_t p[L];
   uint32_t one[L];                 // R mod p: Montgomery form of 1
   uint32_t n0;                     // -p^-1 mod 2^16
+  uint32_t n1;                     // -p^-1 mod 2^32 (n0 its low half)
+  uint32_t p32[D32 - 1];           // p in 32-bit digits (limb L - 1 of p
+                                   // is 0: R >= 2^16 p)
 };
 
 struct Fe {
@@ -57,6 +63,13 @@ __device__ __forceinline__ void fe_store(int64_t* base, const Fe& x,
 // accumulators (each < L * 2^44), then L rounds of base-2^16 reduction
 // (m = t_i n0 mod 2^16; t += m p 2^(16 i); carry t_i up), then the exact
 // carry chain of the high half. No final conditional subtraction.
+//
+// Every product here (mont_mul, mont_mul_d32 and split_mul below) returns
+// the same limbs: the exact 16-bit limbs of (a b + M p) / R mod R, where M
+// is the one integer in [0, R) with a b + M p = 0 mod R (M = -a b p^-1 mod
+// R). Rounds of any digit size that together clear the low 16 L bits
+// build that M, so the digit size of the rounds does not change the
+// output.
 __device__ __forceinline__ void mont_mul(Fe& out, const Fe& a, const Fe& b,
                                          const Mod& M) {
   uint64_t t[2 * L];
@@ -80,6 +93,140 @@ __device__ __forceinline__ void mont_mul(Fe& out, const Fe& a, const Fe& b,
     const uint64_t v = t[L + k] + c;
     out.v[k] = (uint32_t)(v & MASK16);
     c = v >> 16;
+  }
+}
+
+// ----------------------------------------------------------------------
+// The digit product: a b R^-1 on D32 = (L + 1) / 2 digits of 32 bits, one
+// thread, in PTX carry chains (the lane executor's product in K6 at 25
+// limbs, msm_merge.cu MERGE_DIGITS). L is odd at every
+// limb count built (17, 25, 11), so the top digit holds limb L - 1 and its
+// carry, and p fits D32 - 1 digits. The rounds are interleaved with the
+// product's rows (CIOS): round i adds a_i b, takes m = t_0 n1 mod 2^32,
+// adds m p and drops the cleared low digit, D32 - 1 rounds of 32 bits,
+// then the last row and a round of 16 bits (m = t_0 n1 mod 2^16) whose
+// quotient is read off at a 16-bit offset: R = 2^(32 (D32 - 1) + 16) =
+// 2^(16 L). The output equals mont_mul's limb for limb (the note above).
+// Bounds: limbs below 2^22 give a, b < 2^(16 L + 7) in D32 digits (the top
+// one below 2^23); the accumulator t stays below b + p < 2^(16 L + 8)
+// between rounds and below 2^(32 D32 + 24) inside one, so D32 + 1 words
+// hold it and no chain carries out of the top word.
+// ----------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b,
+                                              uint32_t c) {
+  uint32_t d;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(d)
+               : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(d)
+               : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b,
+                                              uint32_t c) {
+  uint32_t d;
+  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(d)
+               : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(d)
+               : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t d;
+  asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(d)
+               : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a) {
+  uint32_t d;
+  asm volatile("addc.cc.u32 %0, %1, 0;" : "=r"(d) : "r"(a));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t addc(uint32_t a) {
+  uint32_t d;
+  asm volatile("addc.u32 %0, %1, 0;" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// t (D32 + 1 words) += x y, y of N <= D32 digits: the low halves of x y_j
+// in one carry chain from t_0, the high halves in another from t_1, each
+// chain's carry run up to the top word.
+template <int N>
+__device__ __forceinline__ void row_mad(uint32_t (&t)[D32 + 1], uint32_t x,
+                                        const uint32_t* y) {
+  t[0] = mad_lo_cc(x, y[0], t[0]);
+#pragma unroll
+  for (int j = 1; j < N; ++j) t[j] = madc_lo_cc(x, y[j], t[j]);
+#pragma unroll
+  for (int k = N; k < D32; ++k) t[k] = addc_cc(t[k]);
+  t[D32] = addc(t[D32]);
+  t[1] = mad_hi_cc(x, y[0], t[1]);
+#pragma unroll
+  for (int j = 1; j < N; ++j) {
+    if (j + 1 < D32)
+      t[j + 1] = madc_hi_cc(x, y[j], t[j + 1]);
+    else
+      t[D32] = madc_hi(x, y[j], t[D32]);
+  }
+#pragma unroll
+  for (int k = N + 1; k < D32; ++k) t[k] = addc_cc(t[k]);
+  if (N < D32) t[D32] = addc(t[D32]);
+}
+
+// Lazy 16-bit limbs (below 2^22) -> D32 exact 32-bit digits.
+__device__ __forceinline__ void to_digits(uint32_t (&x)[D32], const Fe& a) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < D32 - 1; ++j) {
+    c += (uint64_t)a.v[2 * j] + ((uint64_t)a.v[2 * j + 1] << 16);
+    x[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  x[D32 - 1] = a.v[L - 1] + (uint32_t)c;
+}
+
+__device__ __forceinline__ void mont_mul_d32(Fe& out, const Fe& a,
+                                             const Fe& b, const Mod& M) {
+  static_assert(L % 2 == 1, "the digit product takes an odd limb count");
+  uint32_t x[D32], y[D32], t[D32 + 1];
+  to_digits(x, a);
+  to_digits(y, b);
+#pragma unroll
+  for (int k = 0; k <= D32; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < D32; ++i) {
+    row_mad<D32>(t, x[i], y);
+    uint32_t m = t[0] * M.n1;
+    if (i == D32 - 1) m &= MASK16;      // the last round: 16 bits
+    row_mad<D32 - 1>(t, m, M.p32);
+    if (i < D32 - 1) {                   // t_0 is 0: drop it
+#pragma unroll
+      for (int k = 0; k < D32; ++k) t[k] = t[k + 1];
+      t[D32] = 0;
+    }
+  }
+  // t is 0 mod 2^16: the quotient's limbs, mod R
+#pragma unroll
+  for (int j = 0; j < D32; ++j) {
+    out.v[2 * j] = t[j] >> 16;
+    if (2 * j + 1 < L) out.v[2 * j + 1] = t[j + 1] & MASK16;
   }
 }
 
@@ -292,12 +439,17 @@ __device__ __forceinline__ void split_mul(uint64_t (&t)[SplitShape<T>::C],
 }
 
 // Host side: constants arrive as one uint32 array from the Python wrapper
-// (kzg_tpu_torch/ops/cuda.py builds it): p[L], one[L], n0.
+// (kzg_tpu_torch/ops/cuda.py builds it): p[L], one[L], n0, n1; p32 packs
+// p's limbs in pairs.
+constexpr int MOD_WORDS = 2 * L + 2;
+
 inline Mod mod_from_host(const uint32_t* h) {
   Mod M;
   for (int k = 0; k < L; ++k) M.p[k] = h[k];
   for (int k = 0; k < L; ++k) M.one[k] = h[L + k];
   M.n0 = h[2 * L];
+  M.n1 = h[2 * L + 1];
+  for (int j = 0; j < D32 - 1; ++j) M.p32[j] = h[2 * j] | h[2 * j + 1] << 16;
   return M;
 }
 

@@ -17,10 +17,13 @@
 //
 // Bound on the card: a lane reads 4 points and 3 mask bytes and writes 3
 // points (7 x 3 coordinates) and does one complete add (15 base products
-// for G1, 17 on BN158, 48 for G2). A 4097-point MSM runs 13 levels, from 32 x 4096
-// lanes down to 32 x 1. At the nine levels of at most 8192 lanes one
-// lane's serial chain of products sets the time; at the four widest the
-// product rate and the bytes do.
+// for G1, 17 on BN158, 48 for G2). A 4097-point MSM runs 13 levels, from
+// 32 x 4096 lanes down to 32 x 1. At the narrow levels one lane's serial
+// chain of products sets the time; at the wide ones (from 8192 lanes) the
+// rate at which the SMs issue the products' multiplies does, well before
+// the bytes: a product on 16-bit limbs (mont_mul) is 2 L^2 + L wide
+// multiply-adds into 64-bit columns, 1275 at BLS12-381's 25 limbs, with a
+// 50-word accumulator in registers.
 //
 // Design: the lane teams of K2/K4 (team.cuh). A lane's aR and bL go into
 // the first slots (3 base elements per G1 point, 6 per G2 point), the team
@@ -35,10 +38,25 @@
 // WIDE lanes runs in K6's own layout (K_MERGE: G1 teams of 3, which hold
 // twice the lanes per SM and win where the product rate sets the time),
 // a narrower one in the add's (G1 teams of 6: fewer product rounds per
-// lane, which win where one lane's chain does).
+// lane, which win where one lane's chain does). At BLS12-381's 25 limbs
+// (MERGE_DIGITS) the add's products are mont_mul_d32 (mont.cuh) at every
+// width: the same product on (L + 1) / 2 digits of 32 bits in PTX carry
+// chains, (L + 1)^2 / 2 32-bit multiplies (low and high halves) for a b
+// and (L + 1) (L - 1) / 2 for the rounds' m p (338 + 312 at 25 limbs), the
+// accumulator 14 words of registers. Its rounds clear 32 bits each and the
+// last 16, so R stays 2^(16 L); the Montgomery factor M of (a b + M p) / R
+// is the one integer in [0, R) that clears those bits, whatever the digit
+// size, so every output is limb for limb the 16-bit product's (and the
+// plain version's). The slot format, the schedule and the layouts are the
+// 16-bit product's. At 17 and 11 limbs K6 keeps mont_mul: there the digit
+// product was slower at G1's widest level (team_sweep.py merge, PERF.md).
 #include "team.cuh"
 
 namespace kzg {
+
+// Whether the add's products run on 32-bit digits (mont_mul_d32); the
+// same limb counts as ops/team.py MERGE_DIGITS, the CPU model's.
+constexpr bool MERGE_DIGITS = L == 25;
 
 // The operands of one launch: the coordinate arrays of the four input
 // points aL, aR, bL, bR (x, y, z each) and the masks fuse, asing, bsing,
@@ -70,7 +88,7 @@ merge_combine_kernel(const __grid_constant__ MergeArgs a,
                  a.st[q][1], (uint32_t)e, t);
   }
   __syncwarp(t.mask);
-  team_run(S_ADD, t, M);
+  team_run<MERGE_DIGITS>(S_ADD, t, M);
   for (int e = t.rank; e < 3 * E; e += t.team) {
     const int j = e / E, b = e - j * E;
     int64_t* dst = out + (int64_t)e * L * lanes + t.i;

@@ -9,7 +9,7 @@
 // the table names. K6 runs the add's schedule, in a layout of its own
 // from the header's WIDE lanes up and in the add's below.
 //
-// The team block (the host array behind K1's 2 L + 1 modulus words in
+// The team block (the host array behind K1's 2 L + 2 modulus words in
 // each group's constants, team.py block()): 8 constant rows of L words
 // (the constant slots R mod p and two group constants, then the exact
 // subtractions' five slacks m p), then the table. Shared memory of a
@@ -33,7 +33,9 @@
 // its operands (sums of up to four slots, times a small scale) loaded from
 // shared memory into registers, a product the inlined mont_mul of
 // mont.cuh (the form K1 runs near its byte bound), one unrolled L x L
-// product in each of its kernels. After each level the team meets at
+// product in each of its kernels; K6 at 25 limbs runs the digit product
+// mont_mul_d32 instead (team_run<true>), the same limbs from 32-bit
+// digits. After each level the team meets at
 // __syncwarp(team mask); a team never waits on threads outside it, so a
 // team past the batch's end or a warp's spare threads may leave early.
 //
@@ -78,7 +80,7 @@ enum { TAB_WIDE = 9, TAB_LEVELS = 10, TAB_INSTRS = 11, TAB_RANGES = 12,
 constexpr uint32_t CONST_SLOT = 240;     // slot ids >= this are constants
 constexpr int TEAM_CONST_WORDS = 8 * L;  // constant slots + slacks
 constexpr int BAD_TABLE = 1002;
-constexpr int CONST_WORDS = 2 * L + 1;   // K1's words before the team block
+constexpr int CONST_WORDS = MOD_WORDS;  // K1's words before the team block
 enum { T_MUL = 0, T_LAZY = 1, T_EXACT = 2 };
 enum { S_ADD = 0, S_RESET = 1, S_DBL = 2, S_FRESH = 3 };
 enum { O_ADD = 0, O_RESET = 1, O_FRESH = 2 };
@@ -154,7 +156,9 @@ __device__ __forceinline__ void team_sum(Fe& x, uint32_t n, uint32_t slots,
   for (int k = 0; k < L; ++k) x.v[k] *= scale;
 }
 
-// One instruction: MUL, LAZY or EXACT (team.py), result into its slot.
+// One instruction: MUL, LAZY or EXACT (team.py), result into its slot; a
+// MUL by mont_mul, or with Digit by the digit product mont_mul_d32.
+template <bool Digit>
 __device__ __forceinline__ void team_exec(int at, const TeamLane& t,
                                           const Mod& M) {
   const uint32_t w0 = c_team.tab[at];
@@ -167,7 +171,10 @@ __device__ __forceinline__ void team_exec(int at, const TeamLane& t,
     Fe b;
     team_sum(b, (w0 >> 25) & 7u, c_team.tab[at + 2], (w0 >> 16) & 63u, t);
     if (kind == T_MUL) {
-      mont_mul(o, a, b, M);
+      if constexpr (Digit)
+        mont_mul_d32(o, a, b, M);
+      else
+        mont_mul(o, a, b, M);
     } else {
       uint32_t kp[L];
       const int kb = 3 * L + (int)((w0 >> 28) & 7u) * L;
@@ -182,7 +189,8 @@ __device__ __forceinline__ void team_exec(int at, const TeamLane& t,
 }
 
 // Run schedule `s`: each level's instructions r, r + T, ... on rank r,
-// then the team meets.
+// then the team meets. Digit: the products are mont_mul_d32's.
+template <bool Digit = false>
 __device__ __forceinline__ void team_run(int s, const TeamLane& t,
                                          const Mod& M) {
   const int lv0 = (int)c_team.tab[TAB_RANGES + 2 * s];
@@ -192,7 +200,7 @@ __device__ __forceinline__ void team_run(int s, const TeamLane& t,
     const uint32_t w = c_team.tab[TEAM_HDR + l];
     const int first = (int)(w & 0xFFFFu), count = (int)(w >> 16);
     for (int q = t.rank; q < count; q += t.team)
-      team_exec(ins + 3 * (first + q), t, M);
+      team_exec<Digit>(ins + 3 * (first + q), t, M);
     __syncwarp(t.mask);
   }
 }

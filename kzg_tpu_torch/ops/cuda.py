@@ -19,12 +19,14 @@ kernel, each of its call sites is here a kernel written by hand for Hopper
                                                 executor below
                                                 SPLIT_BELOW lanes;
   K6 ``merge_combine_g1`` / ``merge_combine_g2`` (csrc/msm_merge.cu) — the
-                          merge strategy's per-level combine (T5).
+                          merge strategy's per-level combine (T5); its
+                          products on 32-bit digits at the limb counts of
+                          team.MERGE_DIGITS (25).
 
 K2-K6 run lane teams (csrc/team.cuh) over the constant rows and schedule
 table of ops/team.py (K6 runs the add's schedule, in a layout of its own
 from team.MERGE_WIDE lanes up). A group's constant array is K1's modulus
-words (p, R mod p, n0: 2 L + 1 uint32 of the base field), then that team
+words (p, R mod p, n0, n1: 2 L + 2 uint32 of the base field), then that team
 block (_g1_consts, _g2_consts); K2-K5 below SPLIT_BELOW run the split
 executor, each product split over a sub-team of ranks, from a block of
 their own (team.split_block).
@@ -316,11 +318,18 @@ def _u32(vals):
     return (ctypes.c_uint32 * len(vals))(*[int(v) for v in vals])
 
 
+def mod_words(F):
+    """p, R mod p, n0, n1 — the layout of mont.cuh mod_from_host (2 L + 2
+    words)."""
+    return (list(F.params.limbs) + list(F.params.one_limbs)
+            + [F.n0, k1_team.n1(F)])
+
+
 def _mod_consts(F):
-    """p, R mod p, n0 — the layout of mont.cuh mod_from_host."""
+    """mod_words(F) as a uint32 array, kept on F."""
     c = getattr(F, "_k1_consts", None)
     if c is None:
-        c = _u32(list(F.params.limbs) + list(F.params.one_limbs) + [F.n0])
+        c = _u32(mod_words(F))
         F._k1_consts = c
     return c
 
@@ -343,13 +352,11 @@ def _g1_consts(G, split=False):
     3b (a lazy small multiple when 3b <= 14: BN254's 6, BLS12-381's 12; a
     full product above: BN158's 39) and on the branch of 9b > 15 (a full
     product); a curve with 9b <= 15 raises."""
-    F = G.F
     b3 = G._b3_int
     if not 3 * b3 > 15:
         raise ValueError(f"{G.name}: the G1 kernels take 9b > 15, not "
                          f"3b = {b3}")
-    return (list(F.params.limbs) + list(F.params.one_limbs) + [F.n0]
-            + (team.split_block(G) if split else team.block(G)))
+    return mod_words(G.F) + (team.split_block(G) if split else team.block(G))
 
 
 def _g2_consts(G, split=False):
@@ -359,10 +366,9 @@ def _g2_consts(G, split=False):
     BLS12-381) or qnr = 5 (BN158, c0 = v0 + 5 v1 lazy); other curves
     raise."""
     F2 = G.F
-    B = F2.base
     if not (F2.qnr_is_m1 or F2.qnr_small == 5):
         raise ValueError(f"{G.name}: the G2 kernels take qnr = -1 or 5")
-    return (list(B.params.limbs) + list(B.params.one_limbs) + [B.n0]
+    return (mod_words(F2.base)
             + (team.split_block(G) if split else team.block(G)))
 
 

@@ -31,6 +31,15 @@ ranges are balanced by column count. Each rank then
 The output is limb for limb Field._mul_plain's: both take m_i from the
 fully carried column i, so both add the same m p to a b.
 
+``run_d32`` models the other product of the lane executor, mont.cuh's
+mont_mul_d32 (K6's at 25 limbs, ops/team.py MERGE_DIGITS): the same
+Montgomery product on D = (L + 1) / 2 digits of 32 bits, its rows and
+rounds interleaved, D - 1 rounds of 32 bits with n1 = -p^-1 mod 2^32 and a
+last round of 16 bits, so R = 2^(16 L) as before. The Montgomery factor
+of (a b + M p) / R is the one M in [0, R) with a b + M p = 0 mod R,
+whatever digit size the rounds take, so its output too is limb for limb
+Field._mul_plain's.
+
 ``table(L, layout)`` is the uint32 array that the wrapper passes to the C
 entry point: threads per team T, warps per block W, C, then the (start,
 end) column range of each rank. The kernel's registers are laid out at
@@ -206,3 +215,101 @@ def run(F, a, b, tab=None, stats=None):
                               int(t.max()) if t.numel() else 0)
         stats["carry"] = max(stats.get("carry", 0), big)
     return torch.stack(digits)
+
+
+# ----------------------------------------------------------------------
+# the digit product (mont.cuh mont_mul_d32)
+# ----------------------------------------------------------------------
+
+WORD = 0xFFFFFFFF
+
+
+def n1(F):
+    """-p^-1 mod 2^32: the digit product's Montgomery factor (F.n0 is its
+    low 16 bits)."""
+    return F.params.pprime & WORD
+
+
+def _digits(x, L):
+    """(L, *batch) lazy limbs -> (D, *batch) exact 32-bit digits, as the
+    kernel's to_digits packs them (the top digit takes limb L - 1 and the
+    carry)."""
+    out, c = [], torch.zeros_like(x[0])
+    for j in range(L // 2):
+        c = c + x[2 * j] + (x[2 * j + 1] << 16)
+        out.append(c & WORD)
+        c = c >> 32
+    out.append((x[L - 1] + c) & WORD)
+    return torch.stack(out)
+
+
+def _mul_wide(x, y):
+    """The low and high words of x y (both below 2^32): mul.lo and
+    mul.hi, from 16-bit halves so that int64 holds every step."""
+    x0, x1, y0, y1 = x & LIMB_MASK, x >> 16, y & LIMB_MASK, y >> 16
+    mid = x0 * y1 + x1 * y0
+    low = x0 * y0 + ((mid & LIMB_MASK) << 16)
+    return low & WORD, x1 * y1 + (mid >> 16) + (low >> 32)
+
+
+def _add_at(t, v, at):
+    """t (D + 1 words) plus the words v from word `at` up, carried up to the
+    top word as a carry chain carries them; ArithmeticError where a carry
+    would leave the top word (the kernel's accumulator is D + 1 words)."""
+    t = t.clone()
+    t[at:at + len(v)] += v
+    while True:
+        c = t >> 32
+        if not bool(c.any()):
+            return t
+        if bool(c[-1].any()):
+            raise ArithmeticError("digit product: a carry leaves the top "
+                                  "word")
+        t = t & WORD
+        t[1:] += c[:-1]
+
+
+def run_d32(F, a, b, stats=None):
+    """mont_mul_d32 on (L, *batch) int64 limbs below 2^22 (L odd, p's top
+    limb 0): both operands to D digits, then per row i: t += a_i b (the
+    low halves from word 0, the high from word 1), m = t_0 n1 mod 2^32
+    (mod 2^16 in the last row), t += m p, and the low word, now 0, dropped
+    (the last row's t is 0 mod 2^16 and its quotient is read at a 16-bit
+    offset). Returns (L, *batch) exact 16-bit limbs. `stats`, if given,
+    gets the largest top word of t."""
+    L = F.L
+    if L % 2 == 0 or F.p_list[-1] != 0:
+        raise ValueError(f"digit product: L = {L} must be odd and p's top "
+                         "limb 0")
+    D = (L + 1) // 2
+    a, b = F._bc(a, b)
+    x, y = _digits(a, L), _digits(b, L)
+    pd = torch.tensor([F.p_list[2 * j] | F.p_list[2 * j + 1] << 16
+                       for j in range(D - 1)], dtype=torch.int64,
+                      device=a.device).reshape((D - 1,) + (1,) * (a.ndim - 1))
+    k = n1(F)
+    t = torch.zeros((D + 1,) + a.shape[1:], dtype=torch.int64,
+                    device=a.device)
+    for i in range(D):
+        lo, hi = _mul_wide(x[i], y)
+        t = _add_at(_add_at(t, lo, 0), hi, 1)
+        m = _mul_wide(t[0], torch.full_like(t[0], k))[0]
+        if i == D - 1:
+            m = m & LIMB_MASK
+        lo, hi = _mul_wide(m, pd)
+        t = _add_at(_add_at(t, lo, 0), hi, 1)
+        if stats is not None:
+            stats["top"] = max(stats.get("top", 0),
+                               int(t[D].max()) if t.numel() else 0)
+        if i < D - 1:
+            if bool(t[0].any()):
+                raise ArithmeticError("digit product: round left a digit")
+            t = torch.cat([t[1:], torch.zeros_like(t[:1])])
+    if bool((t[0] & LIMB_MASK).any()):
+        raise ArithmeticError("digit product: last round left 16 bits")
+    limbs = []
+    for j in range(D):
+        limbs.append(t[j] >> 16)
+        if 2 * j + 1 < L:
+            limbs.append(t[j + 1] & LIMB_MASK)
+    return torch.stack(limbs)

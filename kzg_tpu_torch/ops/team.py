@@ -90,6 +90,12 @@ SPLIT_LAYOUT = {"g1": {25: ((192, 6, 32), (128, 4, 32))},
 SPLIT_RANKS = (8, 16, 32)            # the R the split kernels are built for
 SPLIT_MAX_THREADS = 288              # team.cuh: a split block, at most
 MERGE_WIDE = 8192
+# The limb counts at which K6 runs the add's products on 32-bit digits
+# (csrc/msm_merge.cu MERGE_DIGITS, mont.cuh mont_mul_d32; the same limbs as
+# mont_mul's): BLS12-381's 25, where team_sweep.py merge / merge-g2 on the
+# H100 found the digit product as fast or faster at every merge level
+# (PERF.md); at 17 and 11 it was slower at G1's widest level
+MERGE_DIGITS = (25,)
 KP2 = (0, 2, 4, 16, 32)              # G2 EXACT slacks, multiples of p
 
 
@@ -638,20 +644,25 @@ def _operand(slots, cst, scale, n, word):
     return v * scale
 
 
-def run(F, blk, sched, slots, stats=None):
+def run(F, blk, sched, slots, stats=None, d32=False):
     """Execute schedule `sched` of the block `blk` (rows, then table) over
     `slots` (a list of (L, *batch) limb tensors of the base field F, at
     least the schedule's inputs filled) with F's plain ops, as the kernel
     does, in place: a product by Field._mul_plain where the table gives its
     kind one rank a product (the lane executor), else split over its R
-    ranks by k1_team.run, the split executor's product rank by rank. With
-    `stats` (a dict), record the bounds of every product's inputs
-    (bound_stats). Returns `slots`."""
+    ranks by k1_team.run, the split executor's product rank by rank; with
+    `d32`, by k1_team.run_d32, the lane executor's product on 32-bit
+    digits (K6's at the limb counts of MERGE_DIGITS). With `stats` (a dict),
+    record the bounds of every product's inputs (bound_stats). Returns
+    `slots`."""
     L = F.L
     words = blk[ROWS * L:]
     ranges, _, lv, ins = _decode(words)
     ranks = words[RANKS + (0 if sched in ADD_KERNEL else 1)]
-    if ranks == 1:
+    if d32:
+        def mul(a, b):
+            return k1_team.run_d32(F, a, b)
+    elif ranks == 1:
         mul = F._mul_plain
     else:
         tab = k1_team.table(L, (ranks, 1))
@@ -720,20 +731,21 @@ def _join(G, vals):
     return dict(zip(("x", "y", "z"), vals))
 
 
-def plain_add(G, P, Q, reset=None, blk=None, stats=None):
+def plain_add(G, P, Q, reset=None, blk=None, stats=None, d32=False):
     """K2's (G1) or K4's (G2) schedules run by `run` on point dicts of the
     base field's device: reset ? Q re-reduced : P + Q, every output
-    re-reduced. blk: the block to run (default block(G))."""
+    re-reduced. blk: the block to run (default block(G)); d32: the
+    products on 32-bit digits (run)."""
     B = G.F.base if G.is_fp2 else G.F
     blk = block(G) if blk is None else blk
     words = blk[ROWS * B.L:]
     P, Q = [{k: v.expand(torch.broadcast_shapes(P[k].shape, Q[k].shape))
              for k, v in X.items()} for X in (P, Q)]
     n = 6 if G.is_fp2 else 3
-    slots = run(B, blk, ADD, _split(G, P) + _split(G, Q), stats)
+    slots = run(B, blk, ADD, _split(G, P) + _split(G, Q), stats, d32)
     out = _join(G, [slots[s] for s in _out(ADD, words, n)])
     if reset is not None:
-        slots = run(B, blk, RESET, [None] * n + _split(G, Q), stats)
+        slots = run(B, blk, RESET, [None] * n + _split(G, Q), stats, d32)
         out = G.select(reset, _join(G, [slots[s] for s in
                                         _out(RESET, words, n)]), out)
     return out
@@ -752,11 +764,16 @@ def plain_dbl(G, P, times, blk=None, stats=None):
     return _join(G, [slots[s] for s in _out(FRESH, blk[ROWS * B.L:], n)])
 
 
-def plain_merge(G, aL, aR, bL, bR, fuse, asing, bsing, blk=None):
-    """K6's program: the add's schedule over (aR, bL) by `run` gives mid;
-    newL = (fuse & asing) ? mid : aL, newR = (fuse & bsing) ? mid : bR,
-    the kept lanes' limbs unchanged."""
-    mid = plain_add(G, aR, bL, blk=blk)
+def plain_merge(G, aL, aR, bL, bR, fuse, asing, bsing, blk=None,
+                d32=None):
+    """K6's program: the add's schedule over (aR, bL) by `run` gives mid,
+    its products on 32-bit digits where `d32` says so (default: as K6 runs
+    them, at the limb counts of MERGE_DIGITS); newL = (fuse & asing) ? mid
+    : aL, newR = (fuse & bsing) ? mid : bR, the kept lanes' limbs
+    unchanged."""
+    if d32 is None:
+        d32 = (G.F.base if G.is_fp2 else G.F).L in MERGE_DIGITS
+    mid = plain_add(G, aR, bL, blk=blk, d32=d32)
     newL = G.select(torch.logical_and(fuse, asing), mid, aL)
     newR = G.select(torch.logical_and(fuse, bsing), mid, bR)
     return mid, newL, newR

@@ -27,6 +27,7 @@ variant is as fast.
 
     python3 team_sweep.py [g1|g2|merge|merge-g2|k1] [--limbs L]
                           [T,W ... | T,W,R ...]
+    python3 team_sweep.py sass [--limbs L]
         (default: g1 with 3,2 4,2 4,4 6,2 6,4 8,2 16,2, at 25 limbs the
          split layouts SPLIT_DEFAULT["g1"]; g2 with 6,2 8,2 8,4 12,2 16,2,
          at 25 limbs SPLIT_DEFAULT["g2"]; merge with 3,2 6,2 6,4;
@@ -35,13 +36,21 @@ variant is as fast.
 
 Prints the card, the ptxas lines of the sources it builds and their nvcc
 times, then one JSON line per layout and the layouts the package ships
-(team.LAYOUT). Imports nothing of JAX.
+(team.LAYOUT). `sass` builds msm_merge at L limbs (default 25) and
+prints, per kernel of the library, the counts of its multiply and add
+opcodes in `cuobjdump -sass` (a K6 kernel holds one inlined product:
+mont_mul's, or at the limb counts of team.MERGE_DIGITS mont_mul_d32's).
+Imports nothing of JAX.
 """
 
+import collections
 import json
 import random
+import re
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -85,6 +94,8 @@ def main(argv):
         return 2
     from kzg_tpu_torch.context import get_context
     from kzg_tpu_torch.ops import cuda, team
+    if argv[:1] == ["sass"]:
+        return sass_counts(int(argv[2]) if argv[1:2] == ["--limbs"] else 25)
     grp = argv[0] if argv and argv[0] in DEFAULT else "g1"
     argv = argv[1:] if argv and argv[0] in DEFAULT else argv
     L = cuda.BASE_L
@@ -188,6 +199,41 @@ def split_picks(rows, lane):
             "lane_as_fast_from": [w for w, ms in rows[lane][kern].items()
                                   if ms <= rows[best][kern][w]]}
     return picks
+
+
+SASS_OPS = ("IMAD", "IMAD.WIDE", "IMAD.HI", "IMAD.X", "IMAD.MOV",
+            "IMAD.SHL", "IMAD.IADD", "IADD3", "IADD3.X", "LEA", "SHF",
+            "LOP3", "PRMT")
+
+
+def sass_counts(L):
+    """cuobjdump -sass of msm_merge at L limbs: per kernel, the count of
+    each opcode of SASS_OPS (an opcode counts under the longest of them
+    that its name starts with, `.U32` and the like dropped) and of all
+    instructions."""
+    from kzg_tpu_torch.ops import cuda
+    cuda.build(["msm_merge"], (L,))
+    tool = Path(cuda._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(cuda._so_path(
+        "msm_merge", L))], capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = cs.kernel_name(m.group(1))
+            counts[fn] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     ln)
+        if fn and m:
+            op = m.group(1)
+            counts[fn]["all"] += 1
+            hit = [k for k in SASS_OPS if op == k or op.startswith(k + ".")]
+            if hit:
+                counts[fn][max(hit, key=len)] += 1
+    print(json.dumps({"sass": {"limbs": L, "tool": str(tool),
+                               "kernels": counts}}), flush=True)
+    return 0
 
 
 def sweep_k1(dev, layouts, t0):

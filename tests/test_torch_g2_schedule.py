@@ -447,8 +447,9 @@ def test_tables_fit_the_kernel_at_11_limbs():
 
 
 def test_kernel_constants_refuse_unencoded_branches():
-    """The point kernels' constants (ops/cuda.py _g1_consts, _g2_consts)
-    are built for the branches the schedules encode, G1 with 9b > 15 (3b a
+    """The point kernels' constants (ops/cuda.py _g1_consts, _g2_consts),
+    K1's 2 L + 2 modulus words (cuda.mod_words) then the team block, are
+    built for the branches the schedules encode, G1 with 9b > 15 (3b a
     scale up to 14 or a product) and G2 with qnr = -1 or 5 (all three
     curves), and refused for any other: a G1 with 3b = 3 (9b = 9 lazy in
     the plain doubling) and an Fp2 with qnr = 3."""
@@ -460,11 +461,12 @@ def test_kernel_constants_refuse_unencoded_branches():
         for J, consts in ((ctx.g1, cuda._g1_consts),
                           (ctx.g2, cuda._g2_consts)):
             B = J.F.base if J.is_fp2 else J.F
-            assert consts(J)[2 * B.L + 1:] == team.block(J)
+            assert consts(J)[:2 * B.L + 2] == cuda.mod_words(B)
+            assert consts(J)[2 * B.L + 2:] == team.block(J)
     bls = get_context("BLS12381", "cpu")
-    assert cuda._g2_consts(bls.g2, split=True)[51:] == \
+    assert cuda._g2_consts(bls.g2, split=True)[52:] == \
         team.split_block(bls.g2)
-    assert cuda._g1_consts(bls.g1, split=True)[51:] == \
+    assert cuda._g1_consts(bls.g1, split=True)[52:] == \
         team.split_block(bls.g1)
     ctx = get_context("BN158", "cpu")
     with pytest.raises(ValueError, match="9b > 15"):
@@ -496,10 +498,10 @@ class _FakePoint:
 
     def _block(self, consts):
         words = ctypes.cast(consts, ctypes.POINTER(ctypes.c_uint32))
-        head = 2 * self.L + 1 + team.ROWS * self.L
+        head = 2 * self.L + 2 + team.ROWS * self.L
         n = (team.HDR + words[head + team.LEVELS]
              + 3 * words[head + team.INSTRS])
-        return words[2 * self.L + 1:head + n]
+        return words[2 * self.L + 2:head + n]
 
     def _write(self, ptr, R):
         out = torch.stack([R[k] for k in ("x", "y", "z")]).reshape(-1)

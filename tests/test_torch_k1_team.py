@@ -10,7 +10,10 @@ in value at a tiny width, on BN254 (17 limbs), BLS12-381 (25) and BN158 (11), on
 seeded lazy limbs up to 2^22 and at the widest product operands that the
 point formulas give (ROADMAP, faults section: BLS12-381's G1 add ~2967 p
 with limbs ~842,974 times ~248 p; BN158's G2 doubling 65.45 p with limbs
-3,270,656). Exact equality: the arithmetic is integer.
+3,270,656). k1_team.run_d32, the model of the lane executor's product on
+32-bit digits (csrc/mont.cuh mont_mul_d32, K6's at the limb counts of
+team.MERGE_DIGITS), is held to the same on the same inputs. Exact
+equality: the arithmetic is integer.
 
 cuda.mont_mul picks the variant by width: through a fake kernel library
 that reads the operands and the team table back from the raw pointers, a
@@ -112,9 +115,12 @@ def test_team_rounds_match_plain_and_kzg_tpu():
     crafted columns (runs of 0xFFFF digits under a carry from below);
     the output is a b R^-1 mod p in exact 16-bit limbs below a b / R + p;
     the columns and the broadcast carries fit the kernel's 64-bit words
-    (a carry below 2^48 packs beside m); kzg_tpu's Field.mul gives the
-    same values (its limbs may be lazy) on the lazy lanes of a 6-lane
-    batch."""
+    (a carry below 2^48 packs beside m); the digit product's model
+    run_d32 gives _mul_plain's limbs too, its accumulator's top word
+    below 2^24 (no carry leaves its D + 1 words), and n1 = -p^-1 mod
+    2^32 with n0 its low half; kzg_tpu's Field.mul gives the same values
+    (its limbs may be lazy) on the lazy lanes of a 6-lane batch, for
+    both models."""
     rng = np.random.default_rng(SEED)
     for curve in ("BN254", "BLS12381", "BN158"):
         F = Field(get_curve(curve).fp, "cpu")
@@ -136,6 +142,13 @@ def test_team_rounds_match_plain_and_kzg_tpu():
             assert torch.equal(k1_team.run(F, a[:, :w], b[:, :w]),
                                want[:, :w])
         _high_half_carries(L)
+        stats = {}
+        d32 = k1_team.run_d32(F, a, b, stats)
+        assert torch.equal(d32, want), curve
+        assert stats["top"] < 1 << 24
+        n1 = k1_team.n1(F)
+        assert (n1 * p) % (1 << 32) == (1 << 32) - 1 and n1 & 0xFFFF == F.n0
+        assert cuda.mod_words(F)[2 * L:] == [F.n0, n1]
         rinv = pow(R, -1, p)
         got = limbs_to_ints(want)
         assert int(want.max()) <= 0xFFFF
@@ -146,6 +159,7 @@ def test_team_rounds_match_plain_and_kzg_tpu():
         jb = b[:, :6].numpy().astype(np.uint32)
         jout = np.asarray(jax.jit(jF.mul)(ja, jb)).astype(np.int64)
         assert limbs_to_ints(jout) == got[:6]
+        assert limbs_to_ints(d32[:, :6]) == limbs_to_ints(jout)
 
 
 class _FakeK1:

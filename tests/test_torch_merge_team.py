@@ -9,7 +9,9 @@ points (numpy seed) at an odd width, with every pattern of the three
 masks: mid, newL and newR as canonical affine points and against the
 python-int oracle, kept lanes' limbs unchanged, mid re-reduced; on BN254
 (17 limbs), BLS12-381 (25) and BN158 (11, whose schedules take 3b as a
-product and qnr = 5).
+product and qnr = 5). The same program with its products on 32-bit digits
+(k1_team.run_d32, the model of the product K6 runs at the limb counts of
+team.MERGE_DIGITS) gives the same limbs.
 
 The wrapper cuda.merge_combine reads a merge level's stride-2 halves in
 place: given through a fake kernel library that reads the operands back
@@ -18,7 +20,8 @@ with the team block behind the constants, the halves of a level's sums
 must give the limbs that contiguous copies of them give, with the halves'
 own storage as the pointers. It picks the library built for the curve's
 limb count and counts the launch under that instance
-(merge_combine_g1@25 and the like).
+(merge_combine_g1@25 and the like). The constants begin with K1's 2 L + 2
+modulus words (cuda.mod_words).
 """
 
 import ctypes
@@ -102,8 +105,12 @@ CURVE_CASES = [
 @pytest.mark.parametrize("grp,curve", CURVE_CASES)
 def test_merge_program_matches_combine_plain(grp, curve):
     J, og, eng, (aL, aR, bL, bR), pts, masks = _batch(grp, curve)
-    got = team.plain_merge(J, aL, aR, bL, bR, *masks)
+    got = team.plain_merge(J, aL, aR, bL, bR, *masks, d32=False)
     want = eng._combine_plain(aL, aR, bL, bR, *masks)
+    digits = team.plain_merge(J, aL, aR, bL, bR, *masks, d32=True)
+    for a, b in zip(got, digits):
+        for k in ("x", "y", "z"):
+            assert torch.equal(a[k], b[k])
     packed = _packed(J, list(got) + list(want))
     for a, b in zip(packed[:3], packed[3:]):
         assert torch.equal(a, b)
@@ -125,8 +132,9 @@ def test_merge_program_matches_combine_plain(grp, curve):
 class _FakeMerge:
     """Stands in for K6's library: reads the operands back from the raw
     pointers and strides as msm_merge.cu addresses them, runs
-    team.plain_merge with the team block behind K1's constants, and writes
-    the kernel's output layout."""
+    team.plain_merge (its products as K6 runs them at the limb count) with
+    the team block behind K1's constants, and writes the kernel's output
+    layout."""
 
     def __init__(self, G):
         self.G = G
@@ -142,9 +150,10 @@ class _FakeMerge:
         st = [st[3 * q:3 * q + 3] for q in range(15)]
         self.ptrs, self.strides = ptrs, st
         words = ctypes.cast(consts, ctypes.POINTER(ctypes.c_uint32))
-        at = 2 * L + 1 + team.ROWS * L                 # the table's header
+        assert words[:2 * L + 2] == cuda.mod_words(B)
+        at = 2 * L + 2 + team.ROWS * L                 # the table's header
         n_lv, n_ins = words[at + team.LEVELS], words[at + team.INSTRS]
-        blk = words[2 * L + 1:at + team.HDR + n_lv + 3 * n_ins]
+        blk = words[2 * L + 2:at + team.HDR + n_lv + 3 * n_ins]
         lead = (2, L) if G.is_fp2 else (L,)
 
         def read(q, dtype, shape):
