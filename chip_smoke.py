@@ -41,7 +41,8 @@ mismatch or exception exits non-zero before the result line):
                add's widest operands (~186 p times ~186 p) and at the G2
                Karatsuba's (8 (c0 + c1) of qnr = 5 products, limbs up to
                56 x 65535), and K2-K6 at 11 limbs (G1 with 3b = 39 a
-               product, G2 with qnr = 5);
+               product, G2 with qnr = 5; K2 and K4 on both executors, K3
+               and K5 on the lane executor);
   3. golden  — reproduces the BN254 and the BLS12-381 golden bytes of
                tests/fixtures/golden/ from their 48-term setup files,
                verifies the whole-message proof and refutes a changed
@@ -127,8 +128,10 @@ mismatch or exception exits non-zero before the result line):
                bound)); K1 in both variants (team_ms, lane_ms, `ships`: the
                one the width rule picks, which ms is) beside floor_ms, an
                empty kernel's launch on the shipped variant's grid, and the
-               lane-team variant must have run on each main path; K2-K5
-               at 25 limbs likewise in both variants (split_ms,
+               lane-team variant must have run on each main path; each
+               point kernel whose width rule has an entry at its limb
+               count (K2-K5 at 25, K2 and K4 at 11) likewise in both
+               variants (split_ms,
                lane_ms, ships, floor_ms; each variant an entry of the
                kernels line with its own launches, and the split executor
                must have run); K6 also
@@ -616,8 +619,9 @@ def phase_kernels(dev, errs, curve="BN254"):
             chains[times] = P
             for _ in range(times):
                 chains[times] = G._dbl_plain(chains[times])
-        variants = point_variants(G)
-        for forced in variants:        # K2-K5 at 25 limbs: both executors
+        vadd = point_variants(f"{grp}_add", L)
+        vdbl = point_variants(f"{grp}_dbl", L)
+        for forced in vadd:            # both executors under a width rule
             kw = team_kw(forced)
             v = "" if forced is None else f" team={forced}"
             k = add(G, P, Q, **kw)
@@ -631,6 +635,9 @@ def phase_kernels(dev, errs, curve="BN254"):
             fresh_points(G, k, f"{kadd}{v} reset")
             same_points(G, k, G.select(mask, Q, summed),
                         f"{kadd}{v} reset mask", kadd, errs)
+        for forced in vdbl:
+            kw = team_kw(forced)
+            v = "" if forced is None else f" team={forced}"
             for times in (1, 8):
                 k = dbl(G, P, times, **kw)
                 fresh_points(G, k, kdbl + v)
@@ -646,7 +653,7 @@ def phase_kernels(dev, errs, curve="BN254"):
         P64, Q64 = [{c: v[..., :64] for c, v in X.items()} for X in (P, Q)]
         stats = {}
         team.plain_add(G, P64, Q64, stats=stats)
-        if len(variants) == 2:
+        if len(vadd) == 2:
             split_stats = {}
             team.plain_add(G, P64, Q64, blk=team.split_block(G),
                            stats=split_stats)
@@ -658,12 +665,11 @@ def phase_kernels(dev, errs, curve="BN254"):
         widest = (f"; the add's product inputs reach "
                   f"{stats['value'] / p:.1f} p, limbs {stats['limb']}, a b "
                   f"= {stats['ab'] / (p << (16 * L)):.4f} R p")
-        both = (" on both executors (split and lane)"
-                if len(variants) == 2 else "")
-        line("kernels", t0, f"{kadd} (with/without reset mask) and {kdbl} "
-             f"(times 1, 8){both} == plain as canonical affine points over "
-             f"{lanes} lanes incl. infinity/doubling/negation; outputs exact "
-             f"16-bit, < 1.1p; 24 lanes vs oracle{widest}")
+        line("kernels", t0, f"{kadd} (with/without reset mask)"
+             f"{both_executors(vadd)} and {kdbl} (times 1, 8)"
+             f"{both_executors(vdbl)} == plain as canonical affine points "
+             f"over {lanes} lanes incl. infinity/doubling/negation; outputs "
+             f"exact 16-bit, < 1.1p; 24 lanes vs oracle{widest}")
         edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs)
 
         # K6 on the same group: aR, bL = P, Q; aL, bR a second pair
@@ -713,7 +719,8 @@ def edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs):
     L = G.F.base.L if G.is_fp2 else G.F.L
     kadd = cuda.kernel_key(f"{grp}_add", L)
     kdbl = cuda.kernel_key(f"{grp}_dbl", L)
-    variants = point_variants(G)
+    vadd = point_variants(f"{grp}_add", L)
+    vdbl = point_variants(f"{grp}_dbl", L)
     for n in EDGE_LANES:
         Pn = {k: v[..., :n].contiguous() for k, v in P.items()}
         Qn = {k: v[..., :n].contiguous() for k, v in Q.items()}
@@ -724,7 +731,7 @@ def edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs):
             chains[times] = Pn
             for _ in range(times):
                 chains[times] = G._dbl_plain(chains[times])
-        for forced in variants:
+        for forced in vadd:
             kw = team_kw(forced)
             v = "" if forced is None else f" team={forced}"
             what = f"{kadd}{v} lanes={n}"
@@ -739,6 +746,9 @@ def edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs):
             fresh_points(G, k, f"{what} reset")
             same_points(G, k, G.select(mask, Qn, summed),
                         f"{what} reset mask", kadd, errs)
+        for forced in vdbl:
+            kw = team_kw(forced)
+            v = "" if forced is None else f" team={forced}"
             for times in (1, 8):
                 what = f"{kdbl}{v} lanes={n} times={times}"
                 k = dbl(G, Pn, times, **kw)
@@ -748,10 +758,10 @@ def edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs):
                 for i in range(min(n, 8)):
                     check(got[i] == og.mul(1 << times, pts_p[i]),
                           f"{what} lane {i} vs oracle")
-    both = " on both executors (split and lane)" if len(variants) == 2 else ""
-    line("kernels", t0, f"{kadd} (with/without reset mask) and {kdbl} (times "
-         f"1, 8){both} == plain at edge widths {EDGE_LANES} lanes; outputs "
-         "exact 16-bit, < 1.1p; first 8 lanes vs oracle")
+    line("kernels", t0, f"{kadd} (with/without reset mask)"
+         f"{both_executors(vadd)} and {kdbl} (times 1, 8)"
+         f"{both_executors(vdbl)} == plain at edge widths {EDGE_LANES} "
+         "lanes; outputs exact 16-bit, < 1.1p; first 8 lanes vs oracle")
 
 
 def halves(aL, aR, bL, bR, sing, batch):
@@ -1808,16 +1818,19 @@ def point_muls(G):
     return 1, 12 + 2 * b3_mul, 9 + b3_mul
 
 
-def point_variants(G):
-    """The variants that the add and doubling kernels of G's group (K2/K3
-    or K4/K5) are held and timed on: (True, False), the split and the lane
-    executor, where the width rule has a split layout at the base field's
-    limb count (BLS12-381's 25 limbs), else (None,), the one executor."""
+def point_variants(kname, L):
+    """The variants that point kernel `kname` (K2 "g1_add", K3 "g1_dbl", K4
+    "g2_add", K5 "g2_dbl") at L limbs is held and timed on: (True, False),
+    the split and the lane executor, where its width rule has an entry at
+    L (K2-K5 at 25 limbs, K2 and K4 at 11), else (None,), the one
+    executor."""
     from kzg_tpu_torch.ops import cuda
-    grp, L = ("g2", G.F.base.L) if G.is_fp2 else ("g1", G.F.L)
-    if L in cuda.SPLIT_BELOW[f"{grp}_add"]:
-        return (True, False)
-    return (None,)
+    return (True, False) if L in cuda.SPLIT_BELOW[kname] else (None,)
+
+
+def both_executors(variants):
+    """The checks' wording for a kernel held on `variants`."""
+    return " on both executors (split and lane)" if len(variants) == 2 else ""
 
 
 def team_kw(team):
@@ -1911,12 +1924,12 @@ def sweep(paths, ctx, bases, bound, errs, gen):
     canonical affine points), then its device time per launch (kernel_ms)
     and bound; per path, path_ms = sum over shapes of the path's launches x
     ms, and gap_ms the same of ms - bound_ms. bases: {group: (curve, P,
-    Q)}. An add moves 9 coordinates, a chain 6 (K6: merge_sweep). K2-K5 at
-    25 limbs in both variants (point_variants): split_ms and lane_ms, each the
-    median of three kernel_ms taken in turns, ms and `ships` the one the
-    width rule picks, floor_ms an empty kernel on its grid; per path also
-    lane_path_ms (every launch on the lane executor), floor_ms and the
-    launches of each variant."""
+    Q)}. An add moves 9 coordinates, a chain 6 (K6: merge_sweep). A point
+    kernel with a width rule at L in both variants (point_variants):
+    split_ms and lane_ms, each the median of three kernel_ms taken in
+    turns, ms and `ships` the one the width rule picks, floor_ms an empty
+    kernel on its grid; per path also lane_path_ms (every launch on the
+    lane executor), floor_ms and the launches of each variant."""
     from kzg_tpu_torch.ops import cuda
     res = {}
     L = ctx.fp.L
@@ -1926,7 +1939,7 @@ def sweep(paths, ctx, bases, bound, errs, gen):
         G, base_p, base_q = bases[grp]
         comps, add_muls, dbl_muls = point_muls(G)
         kadd, kdbl = getattr(cuda, f"{grp}_add"), getattr(cuda, f"{grp}_dbl")
-        variants = point_variants(G)
+        variants = point_variants(kname, L)
         keys = sorted({key for _, shp in paths.values()
                        for key in shp.get(name, {})},
                       key=lambda k: k if isinstance(k, tuple) else (k,))
@@ -2103,11 +2116,12 @@ def phase_kernel_line(dev, curve_paths, errs):
 
     def variant_entries(Gc, key, lanes_of, kernel_fn, plain_fn, work,
                         shape_of, shapes):
-        """K2-K5 (launch counter `key`) in each variant at 25 limbs: an
-        entry named key (the lane executor) and key + " split", each at the
-        heaviest shape the width rule gave that variant (the heaviest of all
-        where it got none), with that variant's launches per path; the
-        split executor must have run on the paths."""
+        """A point kernel with a width rule at its limb count (launch
+        counter `key`) in each variant: an entry named key (the lane
+        executor) and key + " split", each at the heaviest shape the width
+        rule gave that variant (the heaviest of all where it got none),
+        with that variant's launches per path; the split executor must
+        have run on the paths."""
         kname = key.split("@")[0]
         L = Gc.F.base.L if Gc.is_fp2 else Gc.F.L
         for team in (True, False):
@@ -2204,21 +2218,18 @@ def phase_kernel_line(dev, curve_paths, errs):
             def dbl_work(shape):
                 return point_work(L, comps, 6, dbl_muls * shape[1], shape[0])
 
-            if len(point_variants(Gc)) == 2:
-                variant_entries(Gc, add, lambda k: k, add_fn, add_plain,
-                                add_work, lambda k: {"lanes": k}, shapes)
-                variant_entries(Gc, dbl, lambda k: k[0], dbl_fn, chain,
-                                dbl_work,
-                                lambda k: {"lanes": k[0], "times": k[1]},
-                                shapes)
-            else:
-                lanes = heaviest(shapes[add])
-                entry(add, add, on, add_fn(lanes), add_plain(lanes),
-                      Gc.affine_packed, *add_work(lanes), {"lanes": lanes})
-                shape = heaviest(shapes[dbl])
-                entry(dbl, dbl, on, dbl_fn(shape), chain(shape),
-                      Gc.affine_packed, *dbl_work(shape),
-                      {"lanes": shape[0], "times": shape[1]})
+            for key, lanes_of, fn, plain, work, shape_of in (
+                    (add, lambda k: k, add_fn, add_plain, add_work,
+                     lambda k: {"lanes": k}),
+                    (dbl, lambda k: k[0], dbl_fn, chain, dbl_work,
+                     lambda k: {"lanes": k[0], "times": k[1]})):
+                if len(point_variants(key.split("@")[0], L)) == 2:
+                    variant_entries(Gc, key, lanes_of, fn, plain, work,
+                                    shape_of, shapes)
+                else:
+                    shp = heaviest(shapes[key])
+                    entry(key, key, on, fn(shp), plain(shp),
+                          Gc.affine_packed, *work(shp), shape_of(shp))
 
             name = cuda.kernel_key(f"merge_combine_{grp}", L)
             lanes = heaviest(shapes[name])

@@ -39,11 +39,12 @@
 // __syncwarp(team mask); a team never waits on threads outside it, so a
 // team past the batch's end or a warp's spare threads may leave early.
 //
-// The split executor (K2-K5 below cuda.SPLIT_BELOW, BLS12-381's 25
-// limbs): there one lane's chain of whole products sets the launch's time
-// (a 25-limb product takes one thread ~7 us a round), so each product of a
-// level is split by columns over a sub-team of R ranks: the split product
-// of mont.cuh that K1's lane teams run. A lane's team is R x P threads (P
+// The split executor (below cuda.SPLIT_BELOW: K2-K5 at BLS12-381's 25
+// limbs, K2 and K4 at BN158's 11): there one lane's chain of whole
+// products sets the launch's time (a 25-limb product takes one thread ~7
+// us a round), so each product of a level is split by columns over a
+// sub-team of R ranks: the split product of mont.cuh that K1's lane teams
+// run. A lane's team is R x P threads (P
 // products a round), one warp or a whole block: a level of n products
 // runs in ceil(n / P) rounds. In a round each sub-team first forms its
 // product's operands from the slots into operand rows of its own (half its

@@ -97,13 +97,17 @@ K1_TEAM_BELOW = {BASE_L: 3072, 25: 5120, 11: 2048}
 # lanes whatever `times`), K4 (g2_add) and K5 (g2_dbl) launches below this
 # many lanes run the split executor (layout team.SPLIT_LAYOUT), wider ones
 # the lane executor; per kernel and limb count (none: the lane executor
-# at every width), from team_sweep.py on the H100 (PERF.md). G2, run AD5:
-# K4's split executor takes 0.81 x the lane executor's time at 512 lanes
-# and 1.09 x at 768; K5's 0.83 x at 512 x 8 and 1.48 x at 1024 x 8. G1,
-# run AE1: K2's 0.80 x at 512 lanes and 1.11 x at 768; K3's 0.95 x at 1024
-# x 8 and 1.67 x at 2048 x 8
-SPLIT_BELOW = {"g1_add": {25: 768}, "g1_dbl": {25: 2048},
-               "g2_add": {25: 768}, "g2_dbl": {25: 1024}}
+# at every width), from team_sweep.py on the H100 (PERF.md). At 25 limbs,
+# G2 (run AD5): K4's split executor takes 0.81 x the lane executor's time
+# at 512 lanes and 1.09 x at 768; K5's 0.83 x at 512 x 8 and 1.48 x at
+# 1024 x 8; G1 (run AE1): K2's 0.80 x at 512 lanes and 1.11 x at 768; K3's
+# 0.95 x at 1024 x 8 and 1.67 x at 2048 x 8. At 11 limbs the adds only (K3
+# and K5 keep the lane executor there): K4's 0.52 x at 1 lane, 0.59 x at
+# 256 and 1.05 x at 512 (run AG1); K2's 0.79 x at 1 lane and 0.98 x at 512
+# (AG1), 0.90 x at 320 and 1.48 x at 620, the BN158 paths' widths either
+# side of the rule (run AG2's sweep)
+SPLIT_BELOW = {"g1_add": {25: 768, 11: 620}, "g1_dbl": {25: 2048},
+               "g2_add": {25: 768, 11: 512}, "g2_dbl": {25: 1024}}
 
 
 class Kernel:

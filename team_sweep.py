@@ -28,9 +28,10 @@ variant is as fast.
     python3 team_sweep.py [g1|g2|merge|merge-g2|k1] [--limbs L]
                           [T,W ... | T,W,R ...]
     python3 team_sweep.py sass [--limbs L]
-        (default: g1 with 3,2 4,2 4,4 6,2 6,4 8,2 16,2, at 25 limbs the
-         split layouts SPLIT_DEFAULT["g1"]; g2 with 6,2 8,2 8,4 12,2 16,2,
-         at 25 limbs SPLIT_DEFAULT["g2"]; merge with 3,2 6,2 6,4;
+        (default: g1 with 3,2 4,2 4,4 6,2 6,4 8,2 16,2, at 25 and 11
+         limbs the split layouts SPLIT_DEFAULT["g1", L]; g2 with 6,2 8,2
+         8,4 12,2 16,2, at 25 and 11 limbs SPLIT_DEFAULT["g2", L]; merge
+         with 3,2 6,2 6,4;
          merge-g2 with 8,2 8,4 16,2; k1 with 4,4 8,1 8,2 8,4 16,2
          16,4 32,1 32,2)
 
@@ -64,15 +65,23 @@ SPLIT_ADD_LANES = (1, 32, 128, 256, 512, 768, 1024, 1056, 1536, 2048, 4096,
 SPLIT_DBL_SHAPES = ((1, 8), (32, 8), (512, 8), (1024, 8), (2048, 8),
                     (5000, 8), (10000, 8))
 NARROW = 8192
-# G1: whole-block teams of 6 products a round (3 rounds an add), of 4 and 8
-# (a doubling's widest level has 4), and one-warp teams of 4 products a
-# round, W lanes a block; G2: 16 products a round and its neighbours
+# Per group and limb count. At 25 limbs, G1: whole-block teams of 6
+# products a round (3 rounds an add), of 4 and 8 (a doubling's widest level
+# has 4), and one-warp teams of 4 products a round, W lanes a block; G2: 16
+# products a round and its neighbours. At 11 limbs (22 product columns:
+# R = 8 gives 3 a rank, R = 16 2), the same kinds of team with more
+# products a round of 8 and 16 ranks
 SPLIT_DEFAULT = {
-    "g1": [(96, 3, 16), (192, 6, 32), (192, 6, 16), (64, 2, 16),
-           (128, 4, 32), (128, 4, 16), (32, 1, 8), (32, 2, 8), (32, 4, 8),
-           (32, 8, 8)],
-    "g2": [(64, 2, 16), (128, 4, 16), (192, 6, 16), (256, 8, 8),
-           (256, 8, 16), (256, 8, 32), (288, 9, 16)]}
+    ("g1", 25): [(96, 3, 16), (192, 6, 32), (192, 6, 16), (64, 2, 16),
+                 (128, 4, 32), (128, 4, 16), (32, 1, 8), (32, 2, 8),
+                 (32, 4, 8), (32, 8, 8)],
+    ("g2", 25): [(64, 2, 16), (128, 4, 16), (192, 6, 16), (256, 8, 8),
+                 (256, 8, 16), (256, 8, 32), (288, 9, 16)],
+    ("g1", 11): [(32, 1, 8), (32, 2, 8), (32, 4, 8), (32, 8, 8), (64, 2, 8),
+                 (96, 3, 8), (96, 3, 16), (192, 6, 16), (192, 6, 32),
+                 (64, 2, 16)],
+    ("g2", 11): [(128, 4, 8), (256, 8, 8), (256, 8, 16), (64, 2, 8),
+                 (128, 4, 16), (64, 2, 16)]}
 CURVES = {17: "BN254", 25: cs.BLS, 11: cs.BN158}
 MERGE_LANES = tuple(32 << j for j in range(13))
 # K1: the pairing's stacked Fp2 products (108 lanes a pair), the NTT
@@ -101,9 +110,8 @@ def main(argv):
     L = cuda.BASE_L
     if argv[:1] == ["--limbs"]:
         L, argv = int(argv[1]), argv[2:]
-    layouts = [tuple(int(v) for v in a.split(",")) for a in argv] or (
-        SPLIT_DEFAULT[grp] if L in team.SPLIT_LAYOUT.get(grp, {})
-        else DEFAULT[grp])
+    layouts = ([tuple(int(v) for v in a.split(",")) for a in argv]
+               or SPLIT_DEFAULT.get((grp, L), DEFAULT[grp]))
     dev = torch.device("cuda", 0)
     t0 = time.time()
     if grp == "k1":

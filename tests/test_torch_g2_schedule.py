@@ -21,14 +21,15 @@ products past 64 p; there both groups are held to the plain version's own
 product inputs and to a b < R p (BN158_AB below). test_torch_groups.py ties
 the plain versions to kzg_tpu on BN254.
 
-The split executor of K2-K5 (BLS12-381's 25 limbs below
-cuda.SPLIT_BELOW: each product split over R ranks by columns, the
-schedule leveled for the products a round) runs on team.split_block; the
-bls-split cases (G2) and the bls-g1 cases (G1, beside the lane executor's
-model) run its model (team.run with k1_team.run's split product) at the
-same bounds and hold it limb for limb against the lane executor's model,
-and as canonical points against kzg_tpu's own add of the group on
-BLS12-381 (jitted once per shape): the add with the reset select, and the
+The split executor (below cuda.SPLIT_BELOW: K2-K5 at BLS12-381's 25
+limbs, K2 and K4 at BN158's 11; each product split over R ranks by
+columns, the schedule leveled for the products a round) runs on
+team.split_block; the bls-split cases (G2), the bls-g1 cases (G1, beside
+the lane executor's model) and the BN158 adds run its model (team.run
+with k1_team.run's split product) at the same bounds and hold it limb for
+limb against the lane executor's model, and as canonical points against
+kzg_tpu's own add of the group on the same curve (jitted once per
+shape): the add with the reset select, and the
 doubling chain against that complete add of P + P, `times` times
 (kzg_tpu's dbl would compile another ~12 s of eager JAX on a CPU, past
 the port's test time budget). The wrapper's choice between the two C
@@ -219,8 +220,8 @@ BN158_AB = Fraction(1, 10)
     pytest.param("g2", True, "BLS12381", False, id="bls-True"),
     pytest.param("g2", True, "BLS12381", True, id="bls-split-True"),
     pytest.param("g1", True, "BLS12381", True, id="bls-g1-True"),
-    pytest.param("g2", True, "BN158", False, id="bn158-True"),
-    pytest.param("g1", True, "BN158", False, id="bn158-g1-True")])
+    pytest.param("g2", True, "BN158", True, id="bn158-True"),
+    pytest.param("g1", True, "BN158", True, id="bn158-g1-True")])
 def test_add_schedule_matches_plain(grp, with_reset, curve, split,
                                     monkeypatch):
     """On BLS12-381 the G1 add's products are held to a b < 1.15 R p
@@ -402,9 +403,20 @@ def test_tables_fit_the_kernel_at_25_limbs():
     slots and each sub-team's operand rows). A group without a split
     layout at its limb count (BN254) raises."""
     ctx = _fit_at("BLS12381", 25, ([3, 1, 3, 1], [7, 1, 4, 1]), [247, 266])
-    L = 25
-    for J, grp, rounds in ((ctx.g1, "g1", [3, 1, 3, 1]),
-                           (ctx.g2, "g2", [5, 1, 3, 1])):
+    _split_fits(ctx, 25, ([3, 1, 3, 1], [5, 1, 3, 1]))
+    bn = get_context("BN254", "cpu")
+    for J in (bn.g1, bn.g2):
+        with pytest.raises(ValueError, match="no split-executor layout"):
+            team.split_table(J)
+
+
+def _split_fits(ctx, L, rounds):
+    """Both groups' split tables of ctx at L limbs fit, with the product
+    rounds `rounds` (G1, G2), the shipped layouts and their R in the
+    header, the lane table's instructions, split_prepare's shared memory
+    within a block's; refused layouts raise."""
+    for J, grp, rounds in ((ctx.g1, "g1", rounds[0]),
+                           (ctx.g2, "g2", rounds[1])):
         lane, w = team.table(J), team.split_table(J)
         _fits(w)
         layout = team.SPLIT_LAYOUT[grp][L]
@@ -427,10 +439,6 @@ def test_tables_fit_the_kernel_at_25_limbs():
                 team.split_table(J, (bad, layout[1]))
             with pytest.raises(ValueError, match="split layout"):
                 team.split_table(J, (layout[0], bad))
-    bn = get_context("BN254", "cpu")
-    for J in (bn.g1, bn.g2):
-        with pytest.raises(ValueError, match="no split-executor layout"):
-            team.split_table(J)
 
 
 def test_tables_fit_the_kernel_at_11_limbs():
@@ -439,8 +447,12 @@ def test_tables_fit_the_kernel_at_11_limbs():
     threads per team, 14 products against BN254's 12) and a doubling 10
     (4 rounds at 3: zz feeds the products by 3b and by 9b); G2's qnr = 5
     gives a table of its own (the cache key carries qnr) with BN254's
-    rounds and more slots; G1's slacks m p with m = 185 and 200."""
+    rounds and more slots; G1's slacks m p with m = 185 and 200. The split
+    tables (K2 and K4 below the width rule) fit: G1 4 rounds an add at 12
+    products a round (6 | 2 | 6, then 3), 3 a doubling; G2 5 rounds an add
+    at 32, 3 a doubling at 16."""
     ctx = _fit_at("BN158", 11, ([4, 1, 4, 1], [7, 1, 4, 1]), [185, 200])
+    _split_fits(ctx, 11, ([4, 1, 3, 1], [5, 1, 3, 1]))
     bn = get_context("BN254", "cpu")
     assert team.table(ctx.g2) != team.table(bn.g2)
     assert team._key(ctx.g2) == ("g2", 5) and team._key(bn.g2) == ("g2", -1)
@@ -463,11 +475,13 @@ def test_kernel_constants_refuse_unencoded_branches():
             B = J.F.base if J.is_fp2 else J.F
             assert consts(J)[:2 * B.L + 2] == cuda.mod_words(B)
             assert consts(J)[2 * B.L + 2:] == team.block(J)
-    bls = get_context("BLS12381", "cpu")
-    assert cuda._g2_consts(bls.g2, split=True)[52:] == \
-        team.split_block(bls.g2)
-    assert cuda._g1_consts(bls.g1, split=True)[52:] == \
-        team.split_block(bls.g1)
+    for curve in ("BLS12381", "BN158"):
+        ctx = get_context(curve, "cpu")
+        n = 2 * ctx.fp.L + 2
+        assert cuda._g2_consts(ctx.g2, split=True)[n:] == \
+            team.split_block(ctx.g2)
+        assert cuda._g1_consts(ctx.g1, split=True)[n:] == \
+            team.split_block(ctx.g1)
     ctx = get_context("BN158", "cpu")
     with pytest.raises(ValueError, match="9b > 15"):
         cuda._g1_consts(Curve(ctx.fp, 3, name="b1"))
@@ -476,9 +490,9 @@ def test_kernel_constants_refuse_unencoded_branches():
 
 
 class _FakePoint:
-    """Stands in for g1_ops or g2_ops (by G's group) at 25 limbs: records
-    the entry point and the constant block it reads back from the raw
-    pointer, and, on launches of at most N lanes, reads the coordinates and
+    """Stands in for g1_ops or g2_ops (by G's group) at G's limb count:
+    records the entry point and the constant block it reads back from the
+    raw pointer, and, on launches of at most N lanes, reads the coordinates and
     the reset mask back too and writes the outputs of team.plain_add /
     plain_dbl (the lane executor's model) to `out` (wider launches: the
     routing alone, on the CPU's time). Its kzg_* attributes are the four
@@ -540,26 +554,30 @@ class _FakePoint:
 
 
 def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
-    """On BLS12-381 (25 limbs), for every kernel of the width rule (K2-K5),
-    just below SPLIT_BELOW[name][25] lanes cuda.g1_add / g1_dbl / g2_add /
-    g2_dbl call the split entry point with the split block
-    (team.split_block), at that width the lane entry point with
-    team.block, `team` True or False forces either at one lane, each from
-    its group's library built at 25 limbs, each launch counted once under
-    the kernel's 25-limb key; at one lane the outputs are the model's
-    limbs (held to the plain versions above). point_grid gives each
-    variant's launch. BN254 (17 limbs) has no split layout: a forced split
+    """For every kernel and limb count of the width rule (K2-K5 on
+    BLS12-381's 25 limbs, K2 and K4 on BN158's 11), just below
+    SPLIT_BELOW[name][L] lanes cuda.g1_add / g1_dbl / g2_add / g2_dbl call
+    the split entry point with the split block (team.split_block), at that
+    width the lane entry point with team.block, `team` True or False forces
+    either at one lane, each from its group's library built at L limbs,
+    each launch counted once under the kernel's key at L; at one lane the
+    outputs are the model's limbs (held to the plain versions above).
+    point_grid gives each variant's launch. At 11 limbs K3 and K5 have no
+    rule: they take the lane entry point at one lane and just below their
+    group's add rule. BN254 (17 limbs) has no split layout: a forced split
     raises in either group."""
     monkeypatch.setattr(cuda, "_stream", lambda: None)
     monkeypatch.setattr(cuda, "_require", lambda *a, **k: None)
-    L = 25
-    fakes = {grp: _FakePoint(_batch(grp, "BLS12381")[0])
-             for grp in ("g1", "g2")}
+    curve_at = {25: "BLS12381", 11: "BN158", cuda.BASE_L: "BN254"}
+    fakes = {}
     asked = []
 
     def lib(source, limbs=cuda.BASE_L):
         asked.append((source, limbs))
-        return fakes[source[:2]]
+        grp = source[:2]
+        if (grp, limbs) not in fakes:
+            fakes[grp, limbs] = _FakePoint(_batch(grp, curve_at[limbs])[0])
+        return fakes[grp, limbs]
 
     monkeypatch.setattr(cuda, "_lib", lib)
 
@@ -567,42 +585,49 @@ def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
         return {k: v.repeat(*[1] * (v.ndim - 1), -(-n // N))[..., :n]
                 .contiguous() for k, v in X.items()}
 
-    assert sorted(cuda.SPLIT_BELOW) == ["g1_add", "g1_dbl", "g2_add",
-                                        "g2_dbl"]
-    for name, below in cuda.SPLIT_BELOW.items():
+    def launch(name, L, lanes, team_arg, split):
         grp = name[:2]
-        J, og, P0, Q0, pts, qts = _batch(grp, "BLS12381")
-        fake = fakes[grp]
-        blocks = {True: team.split_block(J), False: team.block(J)}
-        key = cuda.kernel_key(name, L)
-        for lanes, team_arg, split in ((below[L] - 1, None, True),
-                                       (below[L], None, False),
-                                       (1, False, False), (1, True, True)):
-            P, Q = tiled(P0, lanes), tiled(Q0, lanes)
-            reset = torch.arange(lanes) % 3 == 1
-            before = cuda.counts()
-            if name.endswith("_add"):
-                got = getattr(cuda, name)(J, P, Q, reset, team=team_arg)
-            else:
-                got = getattr(cuda, name)(J, P, 1, team=team_arg)
-            after = cuda.counts()
-            entry = "kzg_" + name + ("_split" if split else "")
-            assert fake.calls[-1] == (entry, L, blocks[split])
-            assert asked[-1] == (f"{grp}_ops", L)
-            assert {k: after[k] - before[k] for k in after
-                    if after[k] != before[k]} == {key: 1}
-            if lanes > N:
-                continue
+        J, og, P0, Q0, pts, qts = _batch(grp, curve_at[L])
+        P, Q = tiled(P0, lanes), tiled(Q0, lanes)
+        reset = torch.arange(lanes) % 3 == 1
+        before = cuda.counts()
+        if name.endswith("_add"):
+            got = getattr(cuda, name)(J, P, Q, reset, team=team_arg)
+        else:
+            got = getattr(cuda, name)(J, P, 1, team=team_arg)
+        after = cuda.counts()
+        entry = "kzg_" + name + ("_split" if split else "")
+        block = team.split_block(J) if split else team.block(J)
+        assert fakes[grp, L].calls[-1] == (entry, L, block)
+        assert asked[-1] == (f"{grp}_ops", L)
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {cuda.kernel_key(name, L): 1}
+        if lanes <= N:
             assert _same_limbs(got, team.plain_add(J, P, Q, reset)
                                if name.endswith("_add") else
                                team.plain_dbl(J, P, 1))
-        kind = name.endswith("_dbl")
-        per, warps, _ = team.SPLIT_LAYOUT[grp][L][kind]
-        assert cuda.point_grid(name, L, below[L] - 1) == (
-            -(-(below[L] - 1) * per // (32 * warps)), 32 * warps)
-        lane = team.LAYOUT[grp][kind]
-        assert cuda.point_grid(name, L, below[L]) == (
-            -(-below[L] // (32 // lane[0] * lane[1])), 32 * lane[1])
+
+    assert sorted(cuda.SPLIT_BELOW) == ["g1_add", "g1_dbl", "g2_add",
+                                        "g2_dbl"]
+    assert sorted((n, L) for n, b in cuda.SPLIT_BELOW.items() for L in b) \
+        == [("g1_add", 11), ("g1_add", 25), ("g1_dbl", 25), ("g2_add", 11),
+            ("g2_add", 25), ("g2_dbl", 25)]
+    for name, below in cuda.SPLIT_BELOW.items():
+        grp, kind = name[:2], name.endswith("_dbl")
+        for L, rule in below.items():
+            for lanes, team_arg, split in ((rule - 1, None, True),
+                                           (rule, None, False),
+                                           (1, False, False), (1, True, True)):
+                launch(name, L, lanes, team_arg, split)
+            per, warps, _ = team.SPLIT_LAYOUT[grp][L][kind]
+            assert cuda.point_grid(name, L, rule - 1) == (
+                -(-(rule - 1) * per // (32 * warps)), 32 * warps)
+            lane = team.LAYOUT[grp][kind]
+            assert cuda.point_grid(name, L, rule) == (
+                -(-rule // (32 // lane[0] * lane[1])), 32 * lane[1])
+    for grp in ("g1", "g2"):
+        for lanes in (1, cuda.SPLIT_BELOW[f"{grp}_add"][11] - 1):
+            launch(f"{grp}_dbl", 11, lanes, None, False)
     bn = get_context("BN254", "cpu")
     for J, fn in ((bn.g1, cuda.g1_add), (bn.g2, cuda.g2_add)):
         one = J.encode_points([None])
