@@ -41,8 +41,14 @@ mismatch or exception exits non-zero before the result line):
                add's widest operands (~186 p times ~186 p) and at the G2
                Karatsuba's (8 (c0 + c1) of qnr = 5 products, limbs up to
                56 x 65535), and K2-K6 at 11 limbs (G1 with 3b = 39 a
-               product, G2 with qnr = 5; K2 and K4 on both executors, K3
-               and K5 on the lane executor);
+               product, G2 with qnr = 5; K2-K5 on both executors);
+  2b. split_fit — the fixed cost of a split launch: K3 and K5 at 25 and 11
+               limbs on the split executor (cuda.g1_dbl / g2_dbl with
+               team=True) at 1 lane, times = 1, 2, 4, 8, each exact against
+               the plain chain; per kernel the least-squares line ms =
+               intercept + slope x times (the intercept: launch, prologue,
+               loads, the re-reduction and the store; the slope: one
+               doubling) in a split_fit JSON line;
   3. golden  — reproduces the BN254 and the BLS12-381 golden bytes of
                tests/fixtures/golden/ from their 48-term setup files,
                verifies the whole-message proof and refutes a changed
@@ -130,7 +136,7 @@ mismatch or exception exits non-zero before the result line):
                empty kernel's launch on the shipped variant's grid, and the
                lane-team variant must have run on each main path; each
                point kernel whose width rule has an entry at its limb
-               count (K2-K5 at 25, K2 and K4 at 11) likewise in both
+               count (K2-K5 at 25 and at 11) likewise in both
                variants (split_ms,
                lane_ms, ships, floor_ms; each variant an entry of the
                kernels line with its own launches, and the split executor
@@ -169,6 +175,8 @@ DEGREE = 4096
 WARM_RUNS = 3
 K1_LANES = (4096, 131072, 811008)        # scripts/tpu_checks.py's sizes
 K23_LANES = 8200
+FIT_LIMBS = (25, 11)                     # the split fit's limb counts
+FIT_TIMES = (1, 2, 4, 8)                 # and its chains
 EDGE_LANES = (1, 5, 31, 32, 33, 127, 8193)   # K2-K6 ragged team edges
 MSM_POINTS = DEGREE + 1                  # the merge msm of the msm phase
 MSM_SCAN_POINTS = 256                    # its log and scan strategies
@@ -445,6 +453,50 @@ def phase_build():
          f"finish: { {k: round(v, 1) for k, v in secs.items()} }; card: "
          f"{card}")
     return card
+
+
+def split_fit(dev, errs):
+    """The fixed cost of a split launch: K3 and K5 at each limb count of
+    FIT_LIMBS on the split executor (the shipped layout, the wrapper with
+    team=True) at 1 lane, times = FIT_TIMES; each held exactly against the
+    plain chain, then timed (kernel_ms, the median of three); per kernel
+    the ms per times and the least-squares intercept and slope (ms a
+    doubling)."""
+    from kzg_tpu_torch.context import get_context
+    from kzg_tpu_torch.ops import cuda, team
+    out = {}
+    for L in FIT_LIMBS:
+        ctx = get_context({25: BLS, 11: BN158}[L], dev)
+        for grp, G, inputs, dbl in (("g1", ctx.g1, g1_inputs, cuda.g1_dbl),
+                                    ("g2", ctx.g2, g2_inputs, cuda.g2_dbl)):
+            name = cuda.kernel_key(f"{grp}_dbl", L)
+            P = tiled(inputs(ctx, 8, random.Random(SEED))[0], 1)
+            ms = {}
+            for times in FIT_TIMES:
+                R = P
+                for _ in range(times):
+                    R = G._dbl_plain(R)
+                same_points(G, dbl(G, P, times, team=True), R,
+                            f"{name} split at 1 x {times}", name + " split",
+                            errs)
+                ms[times] = statistics.median(
+                    kernel_ms(lambda: dbl(G, P, times, team=True))
+                    for _ in range(3))
+            slope, icpt = statistics.linear_regression(list(ms),
+                                                       list(ms.values()))
+            out[name] = {"layout": team.SPLIT_LAYOUT[grp][L][1], "ms": ms,
+                         "intercept_ms": icpt, "slope_ms": slope}
+    return out
+
+
+def phase_split_fit(dev, card, errs):
+    t0 = time.time()
+    fit = split_fit(dev, errs)
+    print(json.dumps({"split_fit": fit, "card": card}), flush=True)
+    line("split_fit", t0, f"K3, K5 split at 1 lane, times {FIT_TIMES}, "
+         "exact; intercept / slope ms: " + ", ".join(
+             f"{k} {v['intercept_ms']:.4f} / {v['slope_ms']:.4f}"
+             for k, v in fit.items()))
 
 
 def k1_entry(curve, F):
@@ -1822,8 +1874,7 @@ def point_variants(kname, L):
     """The variants that point kernel `kname` (K2 "g1_add", K3 "g1_dbl", K4
     "g2_add", K5 "g2_dbl") at L limbs is held and timed on: (True, False),
     the split and the lane executor, where its width rule has an entry at
-    L (K2-K5 at 25 limbs, K2 and K4 at 11), else (None,), the one
-    executor."""
+    L (K2-K5 at 25 and at 11 limbs), else (None,), the one executor."""
     from kzg_tpu_torch.ops import cuda
     return (True, False) if L in cuda.SPLIT_BELOW[kname] else (None,)
 
@@ -2291,6 +2342,7 @@ def main():
     errs = collections.defaultdict(int)        # kernel entry -> max error
     for curve in ("BN254", BLS, BN158):
         phase_kernels(dev, errs, curve)
+    phase_split_fit(dev, card, errs)
     phase_golden(dev)
     phase_golden(dev, BLS)
     phase_oracle(dev, BN158)

@@ -40,7 +40,7 @@
 // team past the batch's end or a warp's spare threads may leave early.
 //
 // The split executor (below cuda.SPLIT_BELOW: K2-K5 at BLS12-381's 25
-// limbs, K2 and K4 at BN158's 11): there one lane's chain of whole
+// limbs and at BN158's 11): there one lane's chain of whole
 // products sets the launch's time (a 25-limb product takes one thread ~7
 // us a round), so each product of a level is split by columns over a
 // sub-team of R ranks: the split product of mont.cuh that K1's lane teams
@@ -61,6 +61,12 @@
 // own, in global memory, which each block copies into shared memory (a
 // level's words then cost no constant-cache miss on the lane's chain), so
 // launches of the two variants upload nothing when they alternate.
+// The prologue (split_setup) copies that image word by word through
+// registers, the block's threads a word each in turn. Staging it by
+// Hopper's bulk asynchronous copy instead (cp.async.bulk on an mbarrier,
+// the block zeroing the operand rows meanwhile) took 0.3-0.7 us off a
+// launch of 1-128 lanes but up to 13% more at 256-512 and spilled more,
+// so it does not ship (PERF.md).
 // Shared memory and the constant rows grow with L (25 / 17 of BN254's at
 // BLS12-381's 25 limbs, 11 / 17 at BN158's 11); the table does not depend
 // on L.

@@ -101,13 +101,15 @@ K1_TEAM_BELOW = {BASE_L: 3072, 25: 5120, 11: 2048}
 # G2 (run AD5): K4's split executor takes 0.81 x the lane executor's time
 # at 512 lanes and 1.09 x at 768; K5's 0.83 x at 512 x 8 and 1.48 x at
 # 1024 x 8; G1 (run AE1): K2's 0.80 x at 512 lanes and 1.11 x at 768; K3's
-# 0.95 x at 1024 x 8 and 1.67 x at 2048 x 8. At 11 limbs the adds only (K3
-# and K5 keep the lane executor there): K4's 0.52 x at 1 lane, 0.59 x at
-# 256 and 1.05 x at 512 (run AG1); K2's 0.79 x at 1 lane and 0.98 x at 512
-# (AG1), 0.90 x at 320 and 1.48 x at 620, the BN158 paths' widths either
-# side of the rule (run AG2's sweep)
-SPLIT_BELOW = {"g1_add": {25: 768, 11: 620}, "g1_dbl": {25: 2048},
-               "g2_add": {25: 768, 11: 512}, "g2_dbl": {25: 1024}}
+# 0.95 x at 1024 x 8 and 1.67 x at 2048 x 8. At 11 limbs: K4's 0.52 x at 1
+# lane, 0.59 x at 256 and 1.05 x at 512 (run AG1); K2's 0.79 x at 1 lane
+# and 0.98 x at 512 (AG1), 0.90 x at 320 and 1.48 x at 620, the BN158
+# paths' widths either side of the rule (run AG2's sweep); K5's 0.51 x at
+# 1 x 8, 0.57 x at 256 x 8 and 1.08 x at 512 x 8, K3's 0.61 x at 1 x 8,
+# 0.68 x at 512 x 8 and 1.22 x at 768 x 8 (run AH2, in the layouts the
+# BN158 paths' launches pick; the paths launch them at 1 x 8 and 5000 x 8)
+SPLIT_BELOW = {"g1_add": {25: 768, 11: 620}, "g1_dbl": {25: 2048, 11: 768},
+               "g2_add": {25: 768, 11: 512}, "g2_dbl": {25: 1024, 11: 512}}
 
 
 class Kernel:

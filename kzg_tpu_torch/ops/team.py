@@ -85,15 +85,16 @@ LAYOUT = {"g1": ((6, 4), (3, 2), (3, 2)), "g2": ((8, 2), (8, 2), (8, 2))}
 # lanes; G1 (run AE1): its widest level has 6 products (a doubling's 4), so
 # a team of 6 products a round of 32 ranks, a warp each (3 rounds an add),
 # and of 4 for the doubling (3 rounds), the least summed time below the
-# width rule. At 11 limbs (run AG1), where a product has 22 columns: G2
-# 32 products a round of 8 ranks for the add (5 rounds), 16 of 8 for the
-# doubling (3 rounds); G1 12 products a round of 16 ranks for the add (4
-# rounds), 12 of 8 for the doubling (3 rounds). The doubling layouts are
-# the sweep's picks; no width rule ships them at 11 limbs
+# width rule. At 11 limbs, where a product has 22 columns: the adds (run
+# AG1) G2 32 products a round of 8 ranks (5 rounds), G1 12 products a
+# round of 16 ranks (4 rounds); the doublings, picked by the BN158 paths'
+# launches (run AH2, team_sweep.py --paths: every doubling below the rule
+# is the msm's Horner step at 1 lane x 8), in their add's layouts: G2 3
+# rounds of up to 32 products, G1 3 rounds of up to 12
 SPLIT_LAYOUT = {"g1": {25: ((192, 6, 32), (128, 4, 32)),
-                       11: ((192, 6, 16), (96, 3, 8))},
+                       11: ((192, 6, 16), (192, 6, 16))},
                 "g2": {25: ((256, 8, 16), (256, 8, 16)),
-                       11: ((256, 8, 8), (128, 4, 8))}}
+                       11: ((256, 8, 8), (256, 8, 8))}}
 SPLIT_RANKS = (8, 16, 32)            # the R the split kernels are built for
 SPLIT_MAX_THREADS = 288              # team.cuh: a split block, at most
 MERGE_WIDE = 8192

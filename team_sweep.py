@@ -15,7 +15,17 @@ sweep also times the shipped lane layouts (team.LAYOUT) at the same
 widths, gives each layout's summed time below the shipped width rule
 (below_rule_ms) and prints, per kernel, the split layout of the least
 summed time below NARROW lanes and the widths at which the lane executor
-is as fast (split_picks). K1 runs the team table of each
+is as fast (split_picks); each split layout's row also holds its doubling
+at 1 lane with times = 1, 2, 4, 8 and the least-squares line through them
+(`fit`: the intercept, what a launch spends besides its doublings, and the
+slope, ms a doubling). `--paths FILE` weights the picks by the paths:
+FILE holds the launch shapes of the curve's main and msm paths, from
+chip_smoke.py's phases (run here, at full size, and written to FILE with
+a hash of the package's Python sources and chip_smoke.py, run again when
+FILE is missing or its hash is not the tree's); the sweep then also times every shape the paths
+launch, and `weighted_picks` gives, per kernel, the split layout whose
+path time (sum over the paths' shapes of launches x min(split, lane) ms)
+is least, beside the unweighted pick. K1 runs the team table of each
 layout (kzg_tpu_torch/ops/k1_team.py) at 17, 25 and 11 limbs (BN254's,
 BLS12-381's and BN158's Fp, lazy limbs up to 2^22, the last 64 lanes at
 the point formulas' widest operands on BLS12-381 and BN158) at
@@ -26,8 +36,9 @@ summed time below 16384 lanes and the widths at which the thread-per-lane
 variant is as fast.
 
     python3 team_sweep.py [g1|g2|merge|merge-g2|k1] [--limbs L]
-                          [T,W ... | T,W,R ...]
+                          [--paths FILE] [T,W ... | T,W,R ...]
     python3 team_sweep.py sass [--limbs L]
+    python3 team_sweep.py fixed
         (default: g1 with 3,2 4,2 4,4 6,2 6,4 8,2 16,2, at 25 and 11
          limbs the split layouts SPLIT_DEFAULT["g1", L]; g2 with 6,2 8,2
          8,4 12,2 16,2, at 25 and 11 limbs SPLIT_DEFAULT["g2", L]; merge
@@ -41,13 +52,18 @@ times, then one JSON line per layout and the layouts the package ships
 prints, per kernel of the library, the counts of its multiply and add
 opcodes in `cuobjdump -sass` (a K6 kernel holds one inlined product:
 mont_mul's, or at the limb counts of team.MERGE_DIGITS mont_mul_d32's).
-Imports nothing of JAX.
+`fixed` runs chip_smoke.py's split fit alone: K3 and K5 at 25 and 11
+limbs on the shipped split layouts at 1 lane, times = 1, 2, 4, 8, each
+exact, with the least-squares intercept and slope. Imports nothing of
+JAX.
 """
 
 import collections
+import hashlib
 import json
 import random
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -62,8 +78,10 @@ DBL_SHAPES = ((1, 8), (32, 8), (5000, 8))
 # K2-K5 on the split executor: the widths around the width rule too
 SPLIT_ADD_LANES = (1, 32, 128, 256, 512, 768, 1024, 1056, 1536, 2048, 4096,
                    5000, 8192, 10000, 20000)
-SPLIT_DBL_SHAPES = ((1, 8), (32, 8), (512, 8), (1024, 8), (2048, 8),
+SPLIT_DBL_SHAPES = ((1, 8), (32, 8), (256, 8), (512, 8), (768, 8),
+                    (1024, 8), (1536, 8), (2048, 8), (3072, 8), (4097, 8),
                     (5000, 8), (10000, 8))
+FIT_TIMES = (1, 2, 4, 8)             # the doubling at 1 lane, for `fit`
 NARROW = 8192
 # Per group and limb count. At 25 limbs, G1: whole-block teams of 6
 # products a round (3 rounds an add), of 4 and 8 (a doubling's widest level
@@ -105,15 +123,20 @@ def main(argv):
     from kzg_tpu_torch.ops import cuda, team
     if argv[:1] == ["sass"]:
         return sass_counts(int(argv[2]) if argv[1:2] == ["--limbs"] else 25)
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    if argv[:1] == ["fixed"]:
+        return fixed(dev, t0)
     grp = argv[0] if argv and argv[0] in DEFAULT else "g1"
     argv = argv[1:] if argv and argv[0] in DEFAULT else argv
     L = cuda.BASE_L
     if argv[:1] == ["--limbs"]:
         L, argv = int(argv[1]), argv[2:]
+    paths = None
+    if argv[:1] == ["--paths"]:
+        paths, argv = argv[1], argv[2:]
     layouts = ([tuple(int(v) for v in a.split(",")) for a in argv]
                or SPLIT_DEFAULT.get((grp, L), DEFAULT[grp]))
-    dev = torch.device("cuda", 0)
-    t0 = time.time()
     if grp == "k1":
         return sweep_k1(dev, layouts, t0)
     merge = grp.startswith("merge")
@@ -125,8 +148,9 @@ def main(argv):
         for ln in cs.ptxas_lines(cuda.build_log(name, L)):
             print(f"[build] {cuda.kernel_key(name, L)}: {ln}")
     print(f"[build] nvcc seconds {secs}", flush=True)
-    ctx = get_context(CURVES[L], dev)
     g2 = grp.endswith("g2")
+    weights = path_weights(dev, card, L, g2, paths) if paths else None
+    ctx = get_context(CURVES[L], dev)
     G = ctx.g2 if g2 else ctx.g1
     inputs = cs.g2_inputs if g2 else cs.g1_inputs
     P0, Q0, _, _, _ = inputs(ctx, cs.K23_LANES, random.Random(cs.SEED))
@@ -136,7 +160,7 @@ def main(argv):
     if merge:
         timed = sweep_merge(ctx, G, P0, Q0)
     else:
-        timed = sweep_ops(ctx, G, P0, Q0, split)
+        timed = sweep_ops(ctx, G, P0, Q0, split, weights)
     rows = {}
     if split:                    # the shipped lane layouts beside them
         layouts = ["lane"] + layouts
@@ -165,9 +189,74 @@ def main(argv):
     if split:
         print(json.dumps({"split_picks": split_picks(rows, "lane"),
                           "group": grp, "card": card}), flush=True)
+    if split and weights:
+        print(json.dumps({"weighted_picks": split_picks(rows, "lane",
+                                                        weights),
+                          "weights": weights, "group": grp, "card": card}),
+              flush=True)
     print(json.dumps({"shipped": {"layout": team.LAYOUT,
                                   "split_layout": team.SPLIT_LAYOUT,
                                   "split_below": cuda.SPLIT_BELOW},
+                      "seconds": time.time() - t0}), flush=True)
+    return 0
+
+
+def path_weights(dev, card, L, g2, path):
+    """{"add": {lanes: launches}, "dbl": {"LANESxTIMES": launches}} of the
+    group's K2/K3 (or K4/K5) on the main and msm paths of the curve at L
+    limbs, summed over the two paths: read from the JSON file `path` where
+    it was written from the sources it names (source_hash), else taken from
+    chip_smoke.py's phase_main and phase_msm run here (every source built
+    at L) and written there."""
+    from kzg_tpu_torch.ops import cuda
+    f = Path(path)
+    saved = json.loads(f.read_text()) if f.exists() else {}
+    if saved.get("source") != source_hash():
+        cuda.build(limbs=(L,))
+        _, shapes, state = cs.phase_main(dev, card, CURVES[L])
+        _, msm_shapes = cs.phase_msm(card, state)
+        out = {}
+        for shp in (shapes, msm_shapes):
+            for key, d in shp.items():
+                for k, n in d.items():
+                    k = "x".join(map(str, k)) if isinstance(k, tuple) else k
+                    out.setdefault(key, {})
+                    out[key][str(k)] = out[key].get(str(k), 0) + n
+        f.parent.mkdir(parents=True, exist_ok=True)
+        saved = {"source": source_hash(), "shapes": out}
+        f.write_text(json.dumps(saved))
+    shapes = saved["shapes"]
+    grp = "g2" if g2 else "g1"
+    return {"add": {int(k): n for k, n in shapes.get(
+                cuda.kernel_key(f"{grp}_add", L), {}).items()},
+            "dbl": dict(shapes.get(cuda.kernel_key(f"{grp}_dbl", L), {}))}
+
+
+def source_hash():
+    """sha256 of the files that decide the paths' launch shapes: the
+    package's Python sources and chip_smoke.py."""
+    root = Path(__file__).resolve().parent
+    h = hashlib.sha256()
+    for f in sorted(root.glob("kzg_tpu_torch/**/*.py")) + [
+            root / "chip_smoke.py"]:
+        h.update(str(f.relative_to(root)).encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()
+
+
+def fixed(dev, t0):
+    """chip_smoke.py's split fit alone, with the builds it needs."""
+    from kzg_tpu_torch.ops import cuda
+    secs = cuda.build(["g1_ops", "g2_ops"], cs.FIT_LIMBS)
+    card = cs.smi()
+    print(card, flush=True)
+    for L in cs.FIT_LIMBS:
+        for name in ("g1_ops", "g2_ops"):
+            for ln in cs.ptxas_lines(cuda.build_log(name, L)):
+                print(f"[build] {cuda.kernel_key(name, L)}: {ln}")
+    print(f"[build] nvcc seconds {secs}", flush=True)
+    errs = collections.defaultdict(int)
+    print(json.dumps({"split_fit": cs.split_fit(dev, errs), "card": card,
                       "seconds": time.time() - t0}), flush=True)
     return 0
 
@@ -185,25 +274,32 @@ def below_rule(row, grp, L):
     return out
 
 
-def split_picks(rows, lane):
+def split_picks(rows, lane, weights=None):
     """Per kernel (add, dbl): the split layout whose shipping below the
     widths where the lane executor (row `lane`) is as fast costs least,
     summed over the swept widths below NARROW lanes (sum of min(split,
     lane) ms), that sum, the lane executor's alone, and the widths at
-    which the lane executor is as fast as the pick."""
+    which the lane executor is as fast as the pick. With `weights`
+    ({kernel: {width: launches}}, path_weights) each width's term is
+    weighted by its launches on the paths, over the paths' widths alone:
+    the paths' time in the kernel."""
     picks = {}
     for kern in ("add", "dbl"):
-        narrow = [w for w in rows[lane][kern]
-                  if int(str(w).split("x")[0]) < NARROW]
+        if weights is None:
+            w_of = {w: 1 for w in rows[lane][kern]
+                    if int(str(w).split("x")[0]) < NARROW}
+        else:
+            w_of = weights[kern]
 
         def cost(tw):
-            return sum(min(rows[tw][kern][w], rows[lane][kern][w])
-                       for w in narrow)
+            return sum(n * min(rows[tw][kern][w], rows[lane][kern][w])
+                       for w, n in w_of.items())
         best = min((tw for tw in rows if tw != lane and len(tw) == 3),
                    key=cost)
         picks[kern] = {
             "layout": best, "split_sum_ms": cost(best),
-            "lane_sum_ms": sum(rows[lane][kern][w] for w in narrow),
+            "lane_sum_ms": sum(n * rows[lane][kern][w]
+                               for w, n in w_of.items()),
             "lane_as_fast_from": [w for w, ms in rows[lane][kern].items()
                                   if ms <= rows[best][kern][w]]}
     return picks
@@ -311,25 +407,40 @@ def sweep_k1(dev, layouts, t0):
     return 0
 
 
-def sweep_ops(ctx, G, P0, Q0, split=False):
+def sweep_ops(ctx, G, P0, Q0, split=False, weights=None):
     """K2/K3 or K4/K5: the plain results, and a function that holds both
     kernels against them under the layout uploaded, on the variant `team`
     (True the split executor, False the lane one; None the width rule),
-    and times them; with `split`, at the split widths."""
+    and times them; with `split`, at the split widths, and the doubling at
+    1 lane at FIT_TIMES with its least-squares line (`fit`); with
+    `weights` (path_weights), at the paths' widths too."""
     from kzg_tpu_torch.ops import cuda
     grp = "g2" if G.is_fp2 else "g1"
     add, dbl = getattr(cuda, f"{grp}_add"), getattr(cuda, f"{grp}_dbl")
     add_lanes = SPLIT_ADD_LANES if split else ADD_LANES
     dbl_shapes = SPLIT_DBL_SHAPES if split else DBL_SHAPES
+    if weights:
+        add_lanes = sorted(set(add_lanes) | set(weights["add"]))
+        dbl_shapes = sorted(set(dbl_shapes) | {
+            tuple(map(int, k.split("x"))) for k in weights["dbl"]})
+    fit_shapes = [(1, t) for t in FIT_TIMES] if split else []
     want = {}
     for lanes in add_lanes:
         P, Q = cs.tiled(P0, lanes), cs.tiled(Q0, lanes)
         want[lanes] = G.affine_packed(G._add_plain(P, Q))
-    for lanes, times in dbl_shapes:
+    for lanes, times in sorted(set(dbl_shapes) | set(fit_shapes)):
         R = cs.tiled(P0, lanes)
         for _ in range(times):
             R = G._dbl_plain(R)
         want[(lanes, times)] = G.affine_packed(R)
+
+    def dbl_ms(tw, lanes, times, kw):
+        P = cs.tiled(P0, lanes)
+        err = (G.affine_packed(dbl(G, P, times, **kw))
+               - want[(lanes, times)]).abs().max().item()
+        cs.check(err == 0, f"{grp} dbl {tw} {lanes}x{times}: kernel != "
+                 f"plain (max {err})")
+        return cs.kernel_ms(lambda: dbl(G, P, times, **kw))
 
     def row(tw, team=None):
         kw = {} if team is None else {"team": team}
@@ -342,13 +453,12 @@ def sweep_ops(ctx, G, P0, Q0, split=False):
                      f"plain (max {err})")
             out["add"][lanes] = cs.kernel_ms(lambda: add(G, P, Q, **kw))
         for lanes, times in dbl_shapes:
-            P = cs.tiled(P0, lanes)
-            err = (G.affine_packed(dbl(G, P, times, **kw))
-                   - want[(lanes, times)]).abs().max().item()
-            cs.check(err == 0, f"{grp} dbl {tw} {lanes}x{times}: kernel != "
-                     f"plain (max {err})")
-            out["dbl"][f"{lanes}x{times}"] = cs.kernel_ms(
-                lambda: dbl(G, P, times, **kw))
+            out["dbl"][f"{lanes}x{times}"] = dbl_ms(tw, lanes, times, kw)
+        if fit_shapes:
+            ms = {t: dbl_ms(tw, 1, t, kw) for _, t in fit_shapes}
+            slope, icpt = statistics.linear_regression(list(ms),
+                                                       list(ms.values()))
+            out["fit"] = {"ms": ms, "intercept_ms": icpt, "slope_ms": slope}
         return out
 
     return row

@@ -22,10 +22,10 @@ product inputs and to a b < R p (BN158_AB below). test_torch_groups.py ties
 the plain versions to kzg_tpu on BN254.
 
 The split executor (below cuda.SPLIT_BELOW: K2-K5 at BLS12-381's 25
-limbs, K2 and K4 at BN158's 11; each product split over R ranks by
+limbs and at BN158's 11; each product split over R ranks by
 columns, the schedule leveled for the products a round) runs on
 team.split_block; the bls-split cases (G2), the bls-g1 cases (G1, beside
-the lane executor's model) and the BN158 adds run its model (team.run
+the lane executor's model) and the BN158 cases run its model (team.run
 with k1_team.run's split product) at the same bounds and hold it limb for
 limb against the lane executor's model, and as canonical points against
 kzg_tpu's own add of the group on the same curve (jitted once per
@@ -274,8 +274,8 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, split,
     pytest.param("g2", 3, "BLS12381", False, id="bls-3"),
     pytest.param("g2", 3, "BLS12381", True, id="bls-split-3"),
     pytest.param("g1", 3, "BLS12381", True, id="bls-g1-3"),
-    pytest.param("g2", 3, "BN158", False, id="bn158-3"),
-    pytest.param("g1", 3, "BN158", False, id="bn158-g1-3")])
+    pytest.param("g2", 3, "BN158", True, id="bn158-3"),
+    pytest.param("g1", 3, "BN158", True, id="bn158-g1-3")])
 def test_dbl_schedule_matches_plain(grp, times, curve, split, monkeypatch):
     """The split executor's block gives the lane executor's limbs and
     kzg_tpu's add of P + P, `times` times; both executors' product inputs
@@ -448,7 +448,7 @@ def test_tables_fit_the_kernel_at_11_limbs():
     (4 rounds at 3: zz feeds the products by 3b and by 9b); G2's qnr = 5
     gives a table of its own (the cache key carries qnr) with BN254's
     rounds and more slots; G1's slacks m p with m = 185 and 200. The split
-    tables (K2 and K4 below the width rule) fit: G1 4 rounds an add at 12
+    tables (K2-K5 below the width rule) fit: G1 4 rounds an add at 12
     products a round (6 | 2 | 6, then 3), 3 a doubling; G2 5 rounds an add
     at 32, 3 a doubling at 16."""
     ctx = _fit_at("BN158", 11, ([4, 1, 4, 1], [7, 1, 4, 1]), [185, 200])
@@ -555,17 +555,18 @@ class _FakePoint:
 
 def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
     """For every kernel and limb count of the width rule (K2-K5 on
-    BLS12-381's 25 limbs, K2 and K4 on BN158's 11), just below
+    BLS12-381's 25 limbs and on BN158's 11), just below
     SPLIT_BELOW[name][L] lanes cuda.g1_add / g1_dbl / g2_add / g2_dbl call
     the split entry point with the split block (team.split_block), at that
     width the lane entry point with team.block, `team` True or False forces
     either at one lane, each from its group's library built at L limbs,
     each launch counted once under the kernel's key at L; at one lane the
     outputs are the model's limbs (held to the plain versions above).
-    point_grid gives each variant's launch. At 11 limbs K3 and K5 have no
-    rule: they take the lane entry point at one lane and just below their
-    group's add rule. BN254 (17 limbs) has no split layout: a forced split
-    raises in either group."""
+    point_grid gives each variant's launch. At 11 limbs K3 and K5 keep
+    the lane entry point at the widths above their rule that
+    precompute_shifted launches (a setup of 4,097 or 5,000 points). BN254
+    (17 limbs) has no split layout: a forced split raises in either
+    group."""
     monkeypatch.setattr(cuda, "_stream", lambda: None)
     monkeypatch.setattr(cuda, "_require", lambda *a, **k: None)
     curve_at = {25: "BLS12381", 11: "BN158", cuda.BASE_L: "BN254"}
@@ -610,8 +611,8 @@ def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
     assert sorted(cuda.SPLIT_BELOW) == ["g1_add", "g1_dbl", "g2_add",
                                         "g2_dbl"]
     assert sorted((n, L) for n, b in cuda.SPLIT_BELOW.items() for L in b) \
-        == [("g1_add", 11), ("g1_add", 25), ("g1_dbl", 25), ("g2_add", 11),
-            ("g2_add", 25), ("g2_dbl", 25)]
+        == [("g1_add", 11), ("g1_add", 25), ("g1_dbl", 11), ("g1_dbl", 25),
+            ("g2_add", 11), ("g2_add", 25), ("g2_dbl", 11), ("g2_dbl", 25)]
     for name, below in cuda.SPLIT_BELOW.items():
         grp, kind = name[:2], name.endswith("_dbl")
         for L, rule in below.items():
@@ -626,7 +627,8 @@ def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
             assert cuda.point_grid(name, L, rule) == (
                 -(-rule // (32 // lane[0] * lane[1])), 32 * lane[1])
     for grp in ("g1", "g2"):
-        for lanes in (1, cuda.SPLIT_BELOW[f"{grp}_add"][11] - 1):
+        for lanes in (4097, 5000):
+            assert lanes >= cuda.SPLIT_BELOW[f"{grp}_dbl"][11]
             launch(f"{grp}_dbl", 11, lanes, None, False)
     bn = get_context("BN254", "cpu")
     for J, fn in ((bn.g1, cuda.g1_add), (bn.g2, cuda.g2_add)):
