@@ -17,7 +17,9 @@ mismatch or exception exits non-zero before the result line):
                widths (1, T - 1, T + 1 lanes, one lane past a block), at
                108, 216 and 4096 lanes, either side of the width rule
                (K1_TEAM_BELOW - 1, K1_TEAM_BELOW) and at those three;
-               K2/K4 (G1/G2 complete add, with and without reset mask)
+               K2/K4 (G1/G2 complete add, with and without reset mask;
+               on both executors, split and lane, whose output limbs must
+               be equal, K2's products reaching ~1082 p)
                and K3/K5 (G1/G2 doubling chain, times 1 and 8) over 8200
                lanes with infinity, doubling and negation cases, K2-K5
                again at the ragged widths of their
@@ -136,7 +138,8 @@ mismatch or exception exits non-zero before the result line):
                empty kernel's launch on the shipped variant's grid, and the
                lane-team variant must have run on each main path; each
                point kernel whose width rule has an entry at its limb
-               count (K2-K5 at 25 and at 11) likewise in both
+               count (K2-K5 at 25 and at 11, K2 and K4 at 17) likewise
+               in both
                variants (split_ms,
                lane_ms, ships, floor_ms; each variant an entry of the
                kernels line with its own launches, and the split executor
@@ -673,10 +676,12 @@ def phase_kernels(dev, errs, curve="BN254"):
                 chains[times] = G._dbl_plain(chains[times])
         vadd = point_variants(f"{grp}_add", L)
         vdbl = point_variants(f"{grp}_dbl", L)
+        limbs = collections.defaultdict(list)   # each executor's outputs
         for forced in vadd:            # both executors under a width rule
             kw = team_kw(forced)
             v = "" if forced is None else f" team={forced}"
             k = add(G, P, Q, **kw)
+            limbs[kadd, forced].append(k)
             fresh_points(G, k, kadd + v)
             got = G.unpack_affine(same_points(G, k, summed, kadd + v, kadd,
                                               errs))
@@ -684,6 +689,7 @@ def phase_kernels(dev, errs, curve="BN254"):
                 check(got[i] == og.add(pts_p[i], pts_q[i]),
                       f"{kadd}{v} lane {i} vs oracle")
             k = add(G, P, Q, mask, **kw)
+            limbs[kadd, forced].append(k)
             fresh_points(G, k, f"{kadd}{v} reset")
             same_points(G, k, G.select(mask, Q, summed),
                         f"{kadd}{v} reset mask", kadd, errs)
@@ -692,6 +698,7 @@ def phase_kernels(dev, errs, curve="BN254"):
             v = "" if forced is None else f" team={forced}"
             for times in (1, 8):
                 k = dbl(G, P, times, **kw)
+                limbs[kdbl, forced].append(k)
                 fresh_points(G, k, kdbl + v)
                 got = G.unpack_affine(same_points(
                     G, k, chains[times], f"{kdbl}{v} times={times}", kdbl,
@@ -699,6 +706,14 @@ def phase_kernels(dev, errs, curve="BN254"):
                 for i in sample:
                     check(got[i] == og.mul(1 << times, pts_p[i]),
                           f"{kdbl}{v} times={times} lane {i} vs oracle")
+        for kname in (kadd, kdbl):     # the two executors, limb for limb
+            if (kname, True) in limbs:
+                check(all(torch.equal(a[c], b[c])
+                          for a, b in zip(limbs[kname, True],
+                                          limbs[kname, False])
+                          for c in ("x", "y", "z")),
+                      f"{kname}: the split executor's limbs != the lane "
+                      "executor's")
         # the largest product inputs of the add's schedule on these lanes,
         # on the split executor's leveling too (its model: team.run with
         # the split product), which must give the same
@@ -720,6 +735,7 @@ def phase_kernels(dev, errs, curve="BN254"):
         line("kernels", t0, f"{kadd} (with/without reset mask)"
              f"{both_executors(vadd)} and {kdbl} (times 1, 8)"
              f"{both_executors(vdbl)} == plain as canonical affine points "
+             + ("(split limbs == lane limbs) " if len(vadd) == 2 else "") +
              f"over {lanes} lanes incl. infinity/doubling/negation; outputs "
              f"exact 16-bit, < 1.1p; 24 lanes vs oracle{widest}")
         edge_widths(G, P, Q, pts_p, pts_q, og, gen, errs)
@@ -1874,7 +1890,8 @@ def point_variants(kname, L):
     """The variants that point kernel `kname` (K2 "g1_add", K3 "g1_dbl", K4
     "g2_add", K5 "g2_dbl") at L limbs is held and timed on: (True, False),
     the split and the lane executor, where its width rule has an entry at
-    L (K2-K5 at 25 and at 11 limbs), else (None,), the one executor."""
+    L (K2-K5 at 25 and at 11 limbs, K2 and K4 at 17), else (None,), the
+    one executor."""
     from kzg_tpu_torch.ops import cuda
     return (True, False) if L in cuda.SPLIT_BELOW[kname] else (None,)
 

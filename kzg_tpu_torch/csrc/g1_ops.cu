@@ -32,14 +32,14 @@
 // shared memory; the formula runs as levels of independent instructions
 // spread over the team. Two variants, picked by width (ops/cuda.py
 // SPLIT_BELOW, per kernel and limb count):
-//   lane (from the rule up; at every width at 17 limbs):
+//   lane (from the rule up; K3's at every width at 17 limbs):
 //        teams of T threads of one warp, each product an inlined L x L
 //        Montgomery product on operands in registers; a lane's chain falls
 //        to the product rounds of its schedule (team.rounds: 3 per add at
 //        T = 6, 3 per doubling at T = 3; 4 and 4 on BN158), a whole
 //        25-limb product a round (~7 us);
 //   split (below the rule: K2 and K3 at BLS12-381's 25 limbs and at
-//        BN158's 11): each product of a level split by columns over a
+//        BN158's 11, K2 at BN254's 17): each product of a level split by columns over a
 //        sub-team of R ranks (mont.cuh's split product, K1's lane teams),
 //        P products a round, the lane's team R x P threads: one warp (W
 //        lanes a block), or a whole block meeting at __syncthreads(); the
@@ -48,7 +48,9 @@
 //        executor). At 11 limbs a product has 22 columns: K2's and K3's
 //        team is 12 products a round of 16 ranks (2 columns a rank), 4
 //        rounds an add and 3 a doubling (1 lane x 8 ~0.037 ms against
-//        ~0.060 on the lane executor, PERF.md).
+//        ~0.060 on the lane executor, PERF.md). At 17 limbs (34 columns)
+//        K2's team is 12 products a round of 16 ranks, 3 rounds an add
+//        (1 lane ~0.009 ms against ~0.015).
 // The subtractions are exact with the slack m p of the plain version's
 // lazy ones, so every product sees the plain version's values. Outputs
 // are re-reduced: exact 16-bit limbs, value < 1.1 p. K6 (msm_merge.cu)

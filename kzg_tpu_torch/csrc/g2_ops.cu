@@ -32,23 +32,25 @@
 // levels of independent instructions spread over the team, and no operand
 // goes through a local stack frame. Two variants, picked by width
 // (ops/cuda.py SPLIT_BELOW, per kernel and limb count):
-//   lane (from the rule up; at every width at 17 limbs):
+//   lane (from the rule up; K5's at every width at 17 limbs):
 //        teams of T threads of one warp, each product an inlined L x L
 //        Montgomery product on operands in registers; a lane's chain falls
 //        to the product rounds of its schedule (team.rounds: 7 per add and
 //        4 per doubling at T = 8), a whole 25-limb product a round (~7 us);
 //   split (below the rule: K4 and K5 at BLS12-381's 25 limbs and at
-//        BN158's 11): each product of a level split by columns over a
+//        BN158's 11, K4 at BN254's 17): each product of a level split by columns over a
 //        sub-team of R ranks (mont.cuh's split product, K1's lane teams),
 //        P products a round, the lane's team R x P threads: one warp, or
 //        a whole block meeting at __syncthreads(); the schedule leveled
 //        for P products a round (team.rounds: 5 per add and 3 per doubling
 //        at P = 16 of 16 ranks at 25 limbs; 5 per add and 3 per doubling
-//        at P = 32 of 8 ranks at 11, 3 columns a rank of the 22), a linear
+//        at P = 32 of 8 ranks at 11, 3 columns a rank of the 22; at 17
+//        5 per add at P = 16 of 16 ranks, 3 columns of the 34), a linear
 //        instruction a warp, a lane a limb. A 25-limb round costs ~2 us: a
 //        1-lane add ~0.018 ms against ~0.053 ms on the lane executor; at 11
 //        limbs ~0.013 against ~0.025, and 1 lane x 8 doublings ~0.052
-//        against ~0.102 (PERF.md).
+//        against ~0.102; at 17 a 1-lane add ~0.015 against ~0.034
+//        (PERF.md).
 // Outputs are re-reduced: exact 16-bit limbs, each component < 1.1 p. K6
 // (msm_merge.cu) runs the same add schedule on the lane executor.
 #include "team.cuh"

@@ -107,9 +107,16 @@ K1_TEAM_BELOW = {BASE_L: 3072, 25: 5120, 11: 2048}
 # paths' widths either side of the rule (run AG2's sweep); K5's 0.51 x at
 # 1 x 8, 0.57 x at 256 x 8 and 1.08 x at 512 x 8, K3's 0.61 x at 1 x 8,
 # 0.68 x at 512 x 8 and 1.22 x at 768 x 8 (run AH2, in the layouts the
-# BN158 paths' launches pick; the paths launch them at 1 x 8 and 5000 x 8)
-SPLIT_BELOW = {"g1_add": {25: 768, 11: 620}, "g1_dbl": {25: 2048, 11: 768},
-               "g2_add": {25: 768, 11: 512}, "g2_dbl": {25: 1024, 11: 512}}
+# BN158 paths' launches pick; the paths launch them at 1 x 8 and 5000 x 8).
+# At 17 limbs, the adds alone (run AI2, in the layouts the BN254 paths'
+# launches pick): K4's 0.44 x at 1 lane, 0.95 x at 512 and 1.08 x at 544;
+# K2's 0.63 x at 1 lane, 0.89 x at 512 and 1.23 x at 544 (a second wave
+# of split blocks from 529 lanes: 4 blocks of 192 threads an SM at 72
+# registers); K3 and K5 keep the lane executor there
+SPLIT_BELOW = {"g1_add": {25: 768, 11: 620, 17: 544},
+               "g1_dbl": {25: 2048, 11: 768},
+               "g2_add": {25: 768, 11: 512, 17: 544},
+               "g2_dbl": {25: 1024, 11: 512}}
 
 
 class Kernel:

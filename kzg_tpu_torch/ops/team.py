@@ -90,11 +90,18 @@ LAYOUT = {"g1": ((6, 4), (3, 2), (3, 2)), "g2": ((8, 2), (8, 2), (8, 2))}
 # round of 16 ranks (4 rounds); the doublings, picked by the BN158 paths'
 # launches (run AH2, team_sweep.py --paths: every doubling below the rule
 # is the msm's Horner step at 1 lane x 8), in their add's layouts: G2 3
-# rounds of up to 32 products, G1 3 rounds of up to 12
+# rounds of up to 32 products, G1 3 rounds of up to 12. At 17 limbs (34
+# columns), picked by the BN254 paths' launches, main, msm and multiproof
+# (run AI1, team_sweep.py --paths): G2 16 products a round of 16 ranks (3
+# columns a rank; 5 rounds an add, 3 a doubling), G1 12 products a round
+# of 16 ranks for the add (3 rounds) and 6 of 32 ranks for the doubling
+# (3 rounds), which no width rule ships yet (team=True reaches it)
 SPLIT_LAYOUT = {"g1": {25: ((192, 6, 32), (128, 4, 32)),
-                       11: ((192, 6, 16), (192, 6, 16))},
+                       11: ((192, 6, 16), (192, 6, 16)),
+                       17: ((192, 6, 16), (192, 6, 32))},
                 "g2": {25: ((256, 8, 16), (256, 8, 16)),
-                       11: ((256, 8, 8), (256, 8, 8))}}
+                       11: ((256, 8, 8), (256, 8, 8)),
+                       17: ((256, 8, 16), (256, 8, 16))}}
 SPLIT_RANKS = (8, 16, 32)            # the R the split kernels are built for
 SPLIT_MAX_THREADS = 288              # team.cuh: a split block, at most
 MERGE_WIDE = 8192

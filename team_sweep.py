@@ -19,17 +19,18 @@ is as fast (split_picks); each split layout's row also holds its doubling
 at 1 lane with times = 1, 2, 4, 8 and the least-squares line through them
 (`fit`: the intercept, what a launch spends besides its doublings, and the
 slope, ms a doubling). `--paths FILE` weights the picks by the paths:
-FILE holds the launch shapes of the curve's main and msm paths, from
-chip_smoke.py's phases (run here, at full size, and written to FILE with
-a hash of the package's Python sources and chip_smoke.py, run again when
-FILE is missing or its hash is not the tree's); the sweep then also times every shape the paths
-launch, and `weighted_picks` gives, per kernel, the split layout whose
-path time (sum over the paths' shapes of launches x min(split, lane) ms)
-is least, beside the unweighted pick. K1 runs the team table of each
-layout (kzg_tpu_torch/ops/k1_team.py) at 17, 25 and 11 limbs (BN254's,
-BLS12-381's and BN158's Fp, lazy limbs up to 2^22, the last 64 lanes at
-the point formulas' widest operands on BLS12-381 and BN158) at
-K1_WIDTHS, beside the thread-per-lane variant and an empty kernel on its
+FILE holds the launch shapes of the curve's paths as chip_smoke.py's
+sweep weighs them (main and msm; on BN254, at 17 limbs, multiproof too),
+from chip_smoke.py's phases (run here, at full size, and written to FILE
+with a hash of the package's Python sources and chip_smoke.py, run again
+when FILE is missing or its hash is not the tree's); the sweep then also
+times every shape the paths launch, and `weighted_picks` gives, per
+kernel, the split layout whose path time (sum over the paths' shapes of
+launches x min(split, lane) ms) is least, beside the unweighted pick.
+K1 runs the team table of each layout (kzg_tpu_torch/ops/k1_team.py) at
+17, 25 and 11 limbs (BN254's, BLS12-381's and BN158's Fp, lazy limbs up
+to 2^22, the last 64 lanes at the point formulas' widest operands on
+BLS12-381 and BN158) at K1_WIDTHS, beside the thread-per-lane variant and an empty kernel on its
 grid (floor_ms) at the same widths, each exact against
 Field._mul_plain; it prints, per limb count, the layout of the least
 summed time below 16384 lanes and the widths at which the thread-per-lane
@@ -39,9 +40,10 @@ variant is as fast.
                           [--paths FILE] [T,W ... | T,W,R ...]
     python3 team_sweep.py sass [--limbs L]
     python3 team_sweep.py fixed
-        (default: g1 with 3,2 4,2 4,4 6,2 6,4 8,2 16,2, at 25 and 11
-         limbs the split layouts SPLIT_DEFAULT["g1", L]; g2 with 6,2 8,2
-         8,4 12,2 16,2, at 25 and 11 limbs SPLIT_DEFAULT["g2", L]; merge
+        (default: g1 with 3,2 4,2 4,4 6,2 6,4 8,2 16,2, at 17, 25 and
+         11 limbs given with --limbs the split layouts
+         SPLIT_DEFAULT["g1", L]; g2 with 6,2 8,2 8,4 12,2 16,2, with
+         --limbs SPLIT_DEFAULT["g2", L]; merge
          with 3,2 6,2 6,4;
          merge-g2 with 8,2 8,4 16,2; k1 with 4,4 8,1 8,2 8,4 16,2
          16,4 32,1 32,2)
@@ -76,8 +78,8 @@ import chip_smoke as cs
 ADD_LANES = (1, 32, 512, 2048, 5000, 80000)
 DBL_SHAPES = ((1, 8), (32, 8), (5000, 8))
 # K2-K5 on the split executor: the widths around the width rule too
-SPLIT_ADD_LANES = (1, 32, 128, 256, 512, 768, 1024, 1056, 1536, 2048, 4096,
-                   5000, 8192, 10000, 20000)
+SPLIT_ADD_LANES = (1, 32, 128, 256, 512, 544, 576, 640, 704, 768, 1024,
+                   1056, 1536, 2048, 4096, 5000, 8192, 10000, 20000)
 SPLIT_DBL_SHAPES = ((1, 8), (32, 8), (256, 8), (512, 8), (768, 8),
                     (1024, 8), (1536, 8), (2048, 8), (3072, 8), (4097, 8),
                     (5000, 8), (10000, 8))
@@ -88,7 +90,9 @@ NARROW = 8192
 # has 4), and one-warp teams of 4 products a round, W lanes a block; G2: 16
 # products a round and its neighbours. At 11 limbs (22 product columns:
 # R = 8 gives 3 a rank, R = 16 2), the same kinds of team with more
-# products a round of 8 and 16 ranks
+# products a round of 8 and 16 ranks. At 17 limbs (34 columns: R = 8 gives
+# 5 a rank, R = 16 3, R = 32 2), G2 teams of 64-288 threads at each R, G1
+# one-warp teams and whole-block teams of 3-6 products a round
 SPLIT_DEFAULT = {
     ("g1", 25): [(96, 3, 16), (192, 6, 32), (192, 6, 16), (64, 2, 16),
                  (128, 4, 32), (128, 4, 16), (32, 1, 8), (32, 2, 8),
@@ -99,7 +103,13 @@ SPLIT_DEFAULT = {
                  (96, 3, 8), (96, 3, 16), (192, 6, 16), (192, 6, 32),
                  (64, 2, 16)],
     ("g2", 11): [(128, 4, 8), (256, 8, 8), (256, 8, 16), (64, 2, 8),
-                 (128, 4, 16), (64, 2, 16)]}
+                 (128, 4, 16), (64, 2, 16)],
+    ("g1", 17): [(32, 1, 8), (32, 2, 8), (32, 4, 8), (32, 8, 8),
+                 (96, 3, 32), (128, 4, 32), (192, 6, 32), (64, 2, 16),
+                 (96, 3, 16), (192, 6, 16)],
+    ("g2", 17): [(64, 2, 8), (64, 2, 16), (128, 4, 8), (128, 4, 16),
+                 (128, 4, 32), (256, 8, 8), (256, 8, 16), (256, 8, 32),
+                 (288, 9, 16), (288, 9, 32)]}
 CURVES = {17: "BN254", 25: cs.BLS, 11: cs.BN158}
 MERGE_LANES = tuple(32 << j for j in range(13))
 # K1: the pairing's stacked Fp2 products (108 lanes a pair), the NTT
@@ -129,14 +139,14 @@ def main(argv):
         return fixed(dev, t0)
     grp = argv[0] if argv and argv[0] in DEFAULT else "g1"
     argv = argv[1:] if argv and argv[0] in DEFAULT else argv
-    L = cuda.BASE_L
+    L, split_default = cuda.BASE_L, {}
     if argv[:1] == ["--limbs"]:
-        L, argv = int(argv[1]), argv[2:]
+        L, argv, split_default = int(argv[1]), argv[2:], SPLIT_DEFAULT
     paths = None
     if argv[:1] == ["--paths"]:
         paths, argv = argv[1], argv[2:]
     layouts = ([tuple(int(v) for v in a.split(",")) for a in argv]
-               or SPLIT_DEFAULT.get((grp, L), DEFAULT[grp]))
+               or split_default.get((grp, L), DEFAULT[grp]))
     if grp == "k1":
         return sweep_k1(dev, layouts, t0)
     merge = grp.startswith("merge")
@@ -203,20 +213,24 @@ def main(argv):
 
 def path_weights(dev, card, L, g2, path):
     """{"add": {lanes: launches}, "dbl": {"LANESxTIMES": launches}} of the
-    group's K2/K3 (or K4/K5) on the main and msm paths of the curve at L
-    limbs, summed over the two paths: read from the JSON file `path` where
-    it was written from the sources it names (source_hash), else taken from
-    chip_smoke.py's phase_main and phase_msm run here (every source built
-    at L) and written there."""
+    group's K2/K3 (or K4/K5) on the paths of the curve at L limbs that
+    chip_smoke.py sweeps, summed over them: main and msm, and at 17 limbs
+    (BN254) multiproof too. Read from the JSON file `path` where it was
+    written from the sources it names (source_hash), else taken from
+    chip_smoke.py's phase_main, phase_msm (and phase_multiproof) run here
+    (every source built at L) and written there."""
     from kzg_tpu_torch.ops import cuda
     f = Path(path)
     saved = json.loads(f.read_text()) if f.exists() else {}
     if saved.get("source") != source_hash():
         cuda.build(limbs=(L,))
         _, shapes, state = cs.phase_main(dev, card, CURVES[L])
-        _, msm_shapes = cs.phase_msm(card, state)
+        every = [shapes, cs.phase_msm(card, state)[1]]
+        if L == cuda.BASE_L:
+            every.append(cs.phase_multiproof(card, state,
+                                             cs.main_message())[1])
         out = {}
-        for shp in (shapes, msm_shapes):
+        for shp in every:
             for key, d in shp.items():
                 for k, n in d.items():
                     k = "x".join(map(str, k)) if isinstance(k, tuple) else k

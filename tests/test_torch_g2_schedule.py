@@ -22,11 +22,13 @@ product inputs and to a b < R p (BN158_AB below). test_torch_groups.py ties
 the plain versions to kzg_tpu on BN254.
 
 The split executor (below cuda.SPLIT_BELOW: K2-K5 at BLS12-381's 25
-limbs and at BN158's 11; each product split over R ranks by
-columns, the schedule leveled for the products a round) runs on
-team.split_block; the bls-split cases (G2), the bls-g1 cases (G1, beside
-the lane executor's model) and the BN158 cases run its model (team.run
-with k1_team.run's split product) at the same bounds and hold it limb for
+limbs and at BN158's 11, K2 and K4 at BN254's 17; each product split
+over R ranks by columns, the schedule leveled for the products a round)
+runs on team.split_block; the BN254 adds with the reset mask (True,
+g1-True: G1 at its widest product operand, 3b (X1Z2 + X2Z1) ~1082 p),
+the bls-split cases (G2), the bls-g1 cases (G1, beside the lane
+executor's model) and the BN158 cases run its model (team.run with
+k1_team.run's split product) at the same bounds and hold it limb for
 limb against the lane executor's model, and as canonical points against
 kzg_tpu's own add of the group on the same curve (jitted once per
 shape): the add with the reset select, and the
@@ -214,9 +216,9 @@ BN158_AB = Fraction(1, 10)
 
 @pytest.mark.parametrize("grp,with_reset,curve,split", [
     pytest.param("g2", False, "BN254", False, id="False"),
-    pytest.param("g2", True, "BN254", False, id="True"),
+    pytest.param("g2", True, "BN254", True, id="True"),
     pytest.param("g1", False, "BN254", False, id="g1-False"),
-    pytest.param("g1", True, "BN254", False, id="g1-True"),
+    pytest.param("g1", True, "BN254", True, id="g1-True"),
     pytest.param("g2", True, "BLS12381", False, id="bls-True"),
     pytest.param("g2", True, "BLS12381", True, id="bls-split-True"),
     pytest.param("g1", True, "BLS12381", True, id="bls-g1-True"),
@@ -226,7 +228,8 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, split,
                                     monkeypatch):
     """On BLS12-381 the G1 add's products are held to a b < 1.15 R p
     (BLS_G1_ADD_AB: the output bound 2.15 p derived above), and the
-    widest one must reach past R p, as the derivation says it can. The
+    widest one must reach past R p, as the derivation says it can; on
+    BN254 the G1 add's widest product input must reach its ~1082 p. The
     split executor's block gives the lane executor's limbs and kzg_tpu's
     points, and both executors' product inputs are held to the bounds."""
     J, og, P, Q, pts, qts = _batch(grp, curve)
@@ -264,6 +267,8 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, split,
         else:
             _check_bounds(grp, J, st, plain,
                           BN158_AB if curve == "BN158" else 1)
+        if curve == "BN254" and grp == "g1":
+            assert st["value"] > 1080 * J.F.modulus
 
 
 @pytest.mark.parametrize("grp,times,curve,split", [
@@ -323,13 +328,18 @@ def test_table_fits_the_kernel():
     """G2: the product rounds of a team (the lane's serial chain of
     products) are those of the shipped layout: 7 per add (ceil(48 / 8) = 6
     would need every level full), one for a reset lane and for the
-    re-reduction, ceil(27 / 8) = 4 per doubling."""
-    J = get_context("BN254", "cpu").g2
+    re-reduction, ceil(27 / 8) = 4 per doubling. BN254's split tables (K2
+    and K4 below the width rule at 17 limbs) fit too: G1 3 rounds an add
+    at 12 products a round and 3 a doubling at 6, G2 5 rounds an add and
+    3 a doubling at 16."""
+    ctx = get_context("BN254", "cpu")
+    J = ctx.g2
     w = team.table(J)
     assert (w[0:2], w[3:5], w[6:8]) == team.LAYOUT["g2"] == (
         (8, 2), (8, 2), (8, 2))
     _fits(w)
     assert team.rounds(w) == [7, 1, 4, 1]
+    _split_fits(ctx, 17, ([3, 1, 3, 1], [5, 1, 3, 1]))
 
 
 def test_g1_table_fits_the_kernel():
@@ -389,7 +399,7 @@ def _fit_at(curve, L, rounds, lifts):
     return ctx
 
 
-def test_tables_fit_the_kernel_at_25_limbs():
+def test_tables_fit_the_kernel_at_25_limbs(monkeypatch):
     """BLS12-381 (Fp of 25 limbs): both groups' tables fit the kernels'
     image with BN254's rounds (the table does not depend on L), with G1's
     slacks the lifts' m p (m = 247 and 266). Each group's split table
@@ -401,11 +411,11 @@ def test_tables_fit_the_kernel_at_25_limbs():
     within a block's, and a layout that split_prepare refuses raises here
     (its shared memory: the rows, the padded p, the table's 768 words, the
     slots and each sub-team's operand rows). A group without a split
-    layout at its limb count (BN254) raises."""
+    layout at its limb count (25 taken out of SPLIT_LAYOUT) raises."""
     ctx = _fit_at("BLS12381", 25, ([3, 1, 3, 1], [7, 1, 4, 1]), [247, 266])
     _split_fits(ctx, 25, ([3, 1, 3, 1], [5, 1, 3, 1]))
-    bn = get_context("BN254", "cpu")
-    for J in (bn.g1, bn.g2):
+    for J, grp in ((ctx.g1, "g1"), (ctx.g2, "g2")):
+        monkeypatch.delitem(team.SPLIT_LAYOUT[grp], 25)
         with pytest.raises(ValueError, match="no split-executor layout"):
             team.split_table(J)
 
@@ -460,7 +470,8 @@ def test_tables_fit_the_kernel_at_11_limbs():
 
 def test_kernel_constants_refuse_unencoded_branches():
     """The point kernels' constants (ops/cuda.py _g1_consts, _g2_consts),
-    K1's 2 L + 2 modulus words (cuda.mod_words) then the team block, are
+    K1's 2 L + 2 modulus words (cuda.mod_words) then the team block (with
+    `split`, the split block, on all three curves), are
     built for the branches the schedules encode, G1 with 9b > 15 (3b a
     scale up to 14 or a product) and G2 with qnr = -1 or 5 (all three
     curves), and refused for any other: a G1 with 3b = 3 (9b = 9 lazy in
@@ -475,7 +486,7 @@ def test_kernel_constants_refuse_unencoded_branches():
             B = J.F.base if J.is_fp2 else J.F
             assert consts(J)[:2 * B.L + 2] == cuda.mod_words(B)
             assert consts(J)[2 * B.L + 2:] == team.block(J)
-    for curve in ("BLS12381", "BN158"):
+    for curve in ("BN254", "BLS12381", "BN158"):
         ctx = get_context(curve, "cpu")
         n = 2 * ctx.fp.L + 2
         assert cuda._g2_consts(ctx.g2, split=True)[n:] == \
@@ -555,7 +566,8 @@ class _FakePoint:
 
 def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
     """For every kernel and limb count of the width rule (K2-K5 on
-    BLS12-381's 25 limbs and on BN158's 11), just below
+    BLS12-381's 25 limbs and on BN158's 11, K2 and K4 on BN254's 17), just
+    below
     SPLIT_BELOW[name][L] lanes cuda.g1_add / g1_dbl / g2_add / g2_dbl call
     the split entry point with the split block (team.split_block), at that
     width the lane entry point with team.block, `team` True or False forces
@@ -564,9 +576,11 @@ def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
     outputs are the model's limbs (held to the plain versions above).
     point_grid gives each variant's launch. At 11 limbs K3 and K5 keep
     the lane entry point at the widths above their rule that
-    precompute_shifted launches (a setup of 4,097 or 5,000 points). BN254
-    (17 limbs) has no split layout: a forced split raises in either
-    group."""
+    precompute_shifted launches (a setup of 4,097 or 5,000 points). At 17
+    limbs K3 and K5 have no rule: they keep the lane entry point at one
+    lane, and `team` True reaches their split one. A limb count without a
+    split layout (17 taken out of SPLIT_LAYOUT) refuses a forced split in
+    either group."""
     monkeypatch.setattr(cuda, "_stream", lambda: None)
     monkeypatch.setattr(cuda, "_require", lambda *a, **k: None)
     curve_at = {25: "BLS12381", 11: "BN158", cuda.BASE_L: "BN254"}
@@ -611,8 +625,9 @@ def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
     assert sorted(cuda.SPLIT_BELOW) == ["g1_add", "g1_dbl", "g2_add",
                                         "g2_dbl"]
     assert sorted((n, L) for n, b in cuda.SPLIT_BELOW.items() for L in b) \
-        == [("g1_add", 11), ("g1_add", 25), ("g1_dbl", 11), ("g1_dbl", 25),
-            ("g2_add", 11), ("g2_add", 25), ("g2_dbl", 11), ("g2_dbl", 25)]
+        == [("g1_add", 11), ("g1_add", 17), ("g1_add", 25), ("g1_dbl", 11),
+            ("g1_dbl", 25), ("g2_add", 11), ("g2_add", 17), ("g2_add", 25),
+            ("g2_dbl", 11), ("g2_dbl", 25)]
     for name, below in cuda.SPLIT_BELOW.items():
         grp, kind = name[:2], name.endswith("_dbl")
         for L, rule in below.items():
@@ -630,8 +645,15 @@ def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
         for lanes in (4097, 5000):
             assert lanes >= cuda.SPLIT_BELOW[f"{grp}_dbl"][11]
             launch(f"{grp}_dbl", 11, lanes, None, False)
+        launch(f"{grp}_dbl", cuda.BASE_L, 1, None, False)
+        launch(f"{grp}_dbl", cuda.BASE_L, 1, True, True)
     bn = get_context("BN254", "cpu")
-    for J, fn in ((bn.g1, cuda.g1_add), (bn.g2, cuda.g2_add)):
+    for J, fn, grp in ((bn.g1, cuda.g1_add, "g1"), (bn.g2, cuda.g2_add,
+                                                     "g2")):
+        monkeypatch.delitem(team.SPLIT_LAYOUT[grp], cuda.BASE_L)
+        # the split constants are built at a group's first split launch:
+        # drop the ones the launches above left on this group
+        monkeypatch.setattr(J, "_kernel_split_consts", None)
         one = J.encode_points([None])
         with pytest.raises(ValueError, match="no split-executor layout"):
             fn(J, one, one, team=True)
