@@ -20,7 +20,9 @@ mismatch or exception exits non-zero before the result line):
                K2/K4 (G1/G2 complete add, with and without reset mask;
                on both executors, split and lane, whose output limbs must
                be equal, K2's products reaching ~1082 p)
-               and K3/K5 (G1/G2 doubling chain, times 1 and 8) over 8200
+               and K3/K5 (G1/G2 doubling chain, times 1 and 8, on both
+               executors likewise; the split schedule's product inputs
+               over a chain of two equal to the lane schedule's) over 8200
                lanes with infinity, doubling and negation cases, K2-K5
                again at the ragged widths of their
                lane teams (1, 5, 31, 32, 33, 127, 8193 lanes); K6 (merge
@@ -44,8 +46,8 @@ mismatch or exception exits non-zero before the result line):
                Karatsuba's (8 (c0 + c1) of qnr = 5 products, limbs up to
                56 x 65535), and K2-K6 at 11 limbs (G1 with 3b = 39 a
                product, G2 with qnr = 5; K2-K5 on both executors);
-  2b. split_fit — the fixed cost of a split launch: K3 and K5 at 25 and 11
-               limbs on the split executor (cuda.g1_dbl / g2_dbl with
+  2b. split_fit — the fixed cost of a split launch: K3 and K5 at 25, 11
+               and 17 limbs on the split executor (cuda.g1_dbl / g2_dbl with
                team=True) at 1 lane, times = 1, 2, 4, 8, each exact against
                the plain chain; per kernel the least-squares line ms =
                intercept + slope x times (the intercept: launch, prologue,
@@ -74,8 +76,9 @@ mismatch or exception exits non-zero before the result line):
                the commitment, G2 over the first 4097 G2 setup points equals
                the chunked G2 msm_shifted; log and scan at 256 points equal
                chunked; cold time, warm median and launches per call (K6
-               must run); then one warm merge msm call per group under
-               torch.profiler (device time, busy share, launches);
+               must run); then three warm merge msm calls per group, each
+               under torch.profiler (the median device time, its busy
+               share and launches, and each call's device time);
   6. main_bls — the main path again on BLS12-381 (the curve of the
                reference's three-curve harness) at the same sizes, with its
                own main_path_bls and profile_bls JSON lines; K1 (17 limbs,
@@ -138,12 +141,12 @@ mismatch or exception exits non-zero before the result line):
                empty kernel's launch on the shipped variant's grid, and the
                lane-team variant must have run on each main path; each
                point kernel whose width rule has an entry at its limb
-               count (K2-K5 at 25 and at 11, K2 and K4 at 17) likewise
-               in both
+               count (K2-K5 at 25, 11 and 17) likewise in both
                variants (split_ms,
                lane_ms, ships, floor_ms; each variant an entry of the
                kernels line with its own launches, and the split executor
-               must have run); K6 also
+               must have run), the doublings also at their rule's edge
+               widths (rule - 1 and rule lanes x 8); K6 also
                timed from a merge level's stride-2 halves, the wrapper's
                copies included (halves_ms, halves_path_ms), and at 25
                limbs (team.MERGE_DIGITS: products on 32-bit digits) its
@@ -178,11 +181,13 @@ DEGREE = 4096
 WARM_RUNS = 3
 K1_LANES = (4096, 131072, 811008)        # scripts/tpu_checks.py's sizes
 K23_LANES = 8200
-FIT_LIMBS = (25, 11)                     # the split fit's limb counts
+FIT_LIMBS = (25, 11, 17)                 # the split fit's limb counts
 FIT_TIMES = (1, 2, 4, 8)                 # and its chains
 EDGE_LANES = (1, 5, 31, 32, 33, 127, 8193)   # K2-K6 ragged team edges
+RULE_EDGE_TIMES = 8                      # the paths' doubling chains
 MSM_POINTS = DEGREE + 1                  # the merge msm of the msm phase
 MSM_SCAN_POINTS = 256                    # its log and scan strategies
+MSM_PROFILES = 3                         # its profiles per merge msm
 MAIN_KERNELS = ("mont_mul", "g1_add", "g1_dbl", "g2_add", "g2_dbl")
 BLS = "BLS12381"
 BN158 = "BN158"
@@ -469,7 +474,7 @@ def split_fit(dev, errs):
     from kzg_tpu_torch.ops import cuda, team
     out = {}
     for L in FIT_LIMBS:
-        ctx = get_context({25: BLS, 11: BN158}[L], dev)
+        ctx = get_context({25: BLS, 11: BN158, 17: "BN254"}[L], dev)
         for grp, G, inputs, dbl in (("g1", ctx.g1, g1_inputs, cuda.g1_dbl),
                                     ("g2", ctx.g2, g2_inputs, cuda.g2_dbl)):
             name = cuda.kernel_key(f"{grp}_dbl", L)
@@ -732,6 +737,17 @@ def phase_kernels(dev, errs, curve="BN254"):
         widest = (f"; the add's product inputs reach "
                   f"{stats['value'] / p:.1f} p, limbs {stats['limb']}, a b "
                   f"= {stats['ab'] / (p << (16 * L)):.4f} R p")
+        if len(vdbl) == 2:           # the doubling's, a chain of two
+            dstats, split_stats = {}, {}
+            team.plain_dbl(G, P64, 2, stats=dstats)
+            team.plain_dbl(G, P64, 2, blk=team.split_block(G),
+                           stats=split_stats)
+            check(split_stats == dstats, f"{kdbl}: the split schedule's "
+                  "product inputs differ from the lane schedule's")
+            widest += (f"; the doubling's {dstats['value'] / p:.1f} p, limbs "
+                       f"{dstats['limb']}, a b = "
+                       f"{dstats['ab'] / (p << (16 * L)):.4f} R p (both "
+                       "schedules)")
         line("kernels", t0, f"{kadd} (with/without reset mask)"
              f"{both_executors(vadd)} and {kdbl} (times 1, 8)"
              f"{both_executors(vdbl)} == plain as canonical affine points "
@@ -1138,7 +1154,7 @@ def phase_msm(card, main_state):
     prof = profile_ops({
         f"merge_{grp}": (lambda eng=MSMEngine(G, ctx.fr, r, strategy="merge"),
                          P=first(pts, n): eng.msm(sraw, P))
-        for grp, G, pts in groups})
+        for grp, G, pts in groups}, runs=MSM_PROFILES)
     print(json.dumps({label: {"card": card, "curve": ctx.cp.name,
                               "warm_runs": WARM_RUNS, **res,
                               "profile": prof}}), flush=True)
@@ -1817,33 +1833,42 @@ def phase_parallel(card, main_state, dev_name="cuda"):
              for backend, run in runs.items()))
 
 
-def profile_ops(ops, top=6):
-    """One warm run of each op under torch.profiler (device activity only):
-    its wall time (under the profiler), the device time summed over its
-    kernels and copies, their ratio (the device's busy share), its device
-    launches and the kernels that took the most device time. A run in
-    which the profiler reported no device activity is recorded as not
-    measured (None)."""
+def profile_ops(ops, top=6, runs=1):
+    """`runs` warm runs of each op under torch.profiler (device activity
+    only), each its own profile: its wall time (under the profiler), the
+    device time summed over its kernels and copies, their ratio (the
+    device's busy share), its device launches and the kernels that took the
+    most device time; with more than one run, the run of the median device
+    time and every run's device ms (device_ms_runs). A run in which the
+    profiler reported no device activity is recorded as not measured
+    (None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
     for name, fn in ops.items():
-        sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            fn()
+        every = []
+        for _ in range(runs):
             sync()
-            wall = (time.time() - t0) * 1e3
-        dev = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-        dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-        out[name] = {
-            "wall_ms": wall, "device_ms": dev_ms if dev_ms else None,
-            "busy_share": dev_ms / wall if dev_ms else None,
-            "launches": sum(e.count for e in dev),
-            "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
-                    for e in dev[:top]]}
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                fn()
+                sync()
+                wall = (time.time() - t0) * 1e3
+            dev = sorted((e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.self_device_time_total,
+                         reverse=True)
+            dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+            every.append({
+                "wall_ms": wall, "device_ms": dev_ms if dev_ms else None,
+                "busy_share": dev_ms / wall if dev_ms else None,
+                "launches": sum(e.count for e in dev),
+                "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+                        for e in dev[:top]]})
+        out[name] = sorted(every, key=lambda r: r["device_ms"] or 0)[
+            (runs - 1) // 2]
+        if runs > 1:
+            out[name]["device_ms_runs"] = [r["device_ms"] for r in every]
     return out
 
 
@@ -1890,8 +1915,7 @@ def point_variants(kname, L):
     """The variants that point kernel `kname` (K2 "g1_add", K3 "g1_dbl", K4
     "g2_add", K5 "g2_dbl") at L limbs is held and timed on: (True, False),
     the split and the lane executor, where its width rule has an entry at
-    L (K2-K5 at 25 and at 11 limbs, K2 and K4 at 17), else (None,), the
-    one executor."""
+    L (K2-K5 at 25, 11 and 17 limbs), else (None,), the one executor."""
     from kzg_tpu_torch.ops import cuda
     return (True, False) if L in cuda.SPLIT_BELOW[kname] else (None,)
 
@@ -1997,7 +2021,9 @@ def sweep(paths, ctx, bases, bound, errs, gen):
     split_ms and lane_ms, each the median of three kernel_ms taken in
     turns, ms and `ships` the one the width rule picks, floor_ms an empty
     kernel on its grid; per path also lane_path_ms (every launch on the
-    lane executor), floor_ms and the launches of each variant."""
+    lane executor), floor_ms and the launches of each variant. A doubling
+    with a width rule at L is also swept either side of it (rule - 1 and
+    rule lanes, times RULE_EDGE_TIMES; no path launches them)."""
     from kzg_tpu_torch.ops import cuda
     res = {}
     L = ctx.fp.L
@@ -2008,9 +2034,11 @@ def sweep(paths, ctx, bases, bound, errs, gen):
         comps, add_muls, dbl_muls = point_muls(G)
         kadd, kdbl = getattr(cuda, f"{grp}_add"), getattr(cuda, f"{grp}_dbl")
         variants = point_variants(kname, L)
-        keys = sorted({key for _, shp in paths.values()
-                       for key in shp.get(name, {})},
-                      key=lambda k: k if isinstance(k, tuple) else (k,))
+        keys = {key for _, shp in paths.values() for key in shp.get(name, {})}
+        if len(variants) == 2 and kname.endswith("_dbl"):
+            rule = cuda.SPLIT_BELOW[kname][L]    # the rule's edge widths
+            keys |= {(rule - 1, RULE_EDGE_TIMES), (rule, RULE_EDGE_TIMES)}
+        keys = sorted(keys, key=lambda k: k if isinstance(k, tuple) else (k,))
         rows, path_ms = [], dict.fromkeys(paths, 0.0)
         sums = {k: dict.fromkeys(paths, 0.0)
                 for k in ("lane_path_ms", "floor_ms")}

@@ -32,25 +32,27 @@
 // levels of independent instructions spread over the team, and no operand
 // goes through a local stack frame. Two variants, picked by width
 // (ops/cuda.py SPLIT_BELOW, per kernel and limb count):
-//   lane (from the rule up; K5's at every width at 17 limbs):
+//   lane (from the rule up):
 //        teams of T threads of one warp, each product an inlined L x L
 //        Montgomery product on operands in registers; a lane's chain falls
 //        to the product rounds of its schedule (team.rounds: 7 per add and
 //        4 per doubling at T = 8), a whole 25-limb product a round (~7 us);
-//   split (below the rule: K4 and K5 at BLS12-381's 25 limbs and at
-//        BN158's 11, K4 at BN254's 17): each product of a level split by columns over a
-//        sub-team of R ranks (mont.cuh's split product, K1's lane teams),
-//        P products a round, the lane's team R x P threads: one warp, or
-//        a whole block meeting at __syncthreads(); the schedule leveled
-//        for P products a round (team.rounds: 5 per add and 3 per doubling
-//        at P = 16 of 16 ranks at 25 limbs; 5 per add and 3 per doubling
-//        at P = 32 of 8 ranks at 11, 3 columns a rank of the 22; at 17
-//        5 per add at P = 16 of 16 ranks, 3 columns of the 34), a linear
-//        instruction a warp, a lane a limb. A 25-limb round costs ~2 us: a
+//   split (below the rule: K4 and K5 at BLS12-381's 25 limbs, at BN158's
+//        11 and at BN254's 17): each product of a level split by
+//        columns over a sub-team of R ranks (mont.cuh's split product,
+//        K1's lane teams), P products a round, the lane's team R x P
+//        threads: one warp, or a whole block meeting at __syncthreads();
+//        the schedule leveled for P products a round (team.rounds: 5 per
+//        add and 3 per doubling at P = 16 of 16 ranks at 25 limbs; 5 per
+//        add and 3 per doubling at P = 32 of 8 ranks at 11, 3 columns a
+//        rank of the 22; at 17 5 per add and 3 per doubling at P = 16 of
+//        16 ranks, 3 columns of the 34), a linear instruction a warp, a
+//        lane a limb. A 25-limb round costs ~2 us: a
 //        1-lane add ~0.018 ms against ~0.053 ms on the lane executor; at 11
 //        limbs ~0.013 against ~0.025, and 1 lane x 8 doublings ~0.052
-//        against ~0.102; at 17 a 1-lane add ~0.015 against ~0.034
-//        (PERF.md).
+//        against ~0.102; at 17 a 1-lane add ~0.015 against ~0.034, and
+//        1 lane x 8 doublings ~0.062 against ~0.141, K5's rule 397 lanes
+//        where a second wave of blocks starts (runs AJ1, AJ2, PERF.md).
 // Outputs are re-reduced: exact 16-bit limbs, each component < 1.1 p. K6
 // (msm_merge.cu) runs the same add schedule on the lane executor.
 #include "team.cuh"
@@ -130,6 +132,12 @@ g2_add_split_kernel(const int64_t* __restrict__ px,
   split_store(out, rst ? O_RESET : O_ADD, 6, t, lanes);
 }
 
+// At 17 limbs ptxas gives the R = 16 form 72 registers and 8 B of spill
+// (g1_ops.cu's too). A budget of one or two blocks an SM in the launch
+// bounds removes it at 96 registers, but then two 256-thread blocks fit an
+// SM, not three: 1.37 x the time at 384 lanes x 8; the chain's last
+// (re-reducing) schedule run outside its loop removes it too, but spills
+// 32 B in the R = 32 form, G1's (PERF.md, run AJ1).
 template <int R>
 __global__ void __launch_bounds__(SPLIT_MAX_THREADS)
 g2_dbl_split_kernel(const int64_t* __restrict__ px,

@@ -40,7 +40,7 @@
 // team past the batch's end or a warp's spare threads may leave early.
 //
 // The split executor (below cuda.SPLIT_BELOW: K2-K5 at BLS12-381's 25
-// limbs and at BN158's 11, K2 and K4 at BN254's 17): there one lane's chain of whole
+// limbs, at BN158's 11 and at BN254's 17): there one lane's chain of whole
 // products sets the launch's time (a 25-limb product takes one thread ~7
 // us a round), so each product of a level is split by columns over a
 // sub-team of R ranks: the split product of mont.cuh that K1's lane teams

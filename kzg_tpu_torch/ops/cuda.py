@@ -108,15 +108,21 @@ K1_TEAM_BELOW = {BASE_L: 3072, 25: 5120, 11: 2048}
 # 1 x 8, 0.57 x at 256 x 8 and 1.08 x at 512 x 8, K3's 0.61 x at 1 x 8,
 # 0.68 x at 512 x 8 and 1.22 x at 768 x 8 (run AH2, in the layouts the
 # BN158 paths' launches pick; the paths launch them at 1 x 8 and 5000 x 8).
-# At 17 limbs, the adds alone (run AI2, in the layouts the BN254 paths'
-# launches pick): K4's 0.44 x at 1 lane, 0.95 x at 512 and 1.08 x at 544;
-# K2's 0.63 x at 1 lane, 0.89 x at 512 and 1.23 x at 544 (a second wave
-# of split blocks from 529 lanes: 4 blocks of 192 threads an SM at 72
-# registers); K3 and K5 keep the lane executor there
+# At 17 limbs, in the layouts the BN254 paths' launches pick: the adds (run
+# AI2) K4's 0.44 x at 1 lane, 0.95 x at 512 and 1.08 x at 544; K2's 0.63 x
+# at 1 lane, 0.89 x at 512 and 1.23 x at 544 (a second wave of split
+# blocks from 529 lanes: 4 blocks of 192 threads an SM at 72 registers);
+# the doublings (run AJ1, both executors every 32 lanes from 384 to 1024
+# x 8) K5's 0.44 x at 1 x 8, 0.67 x at 384 x 8 and 1.00 x at 416 x 8, K3's
+# 0.49 x at 1 x 8, 0.74 x at 512 x 8 and 1.10 x at 544 x 8; each rule
+# where its second wave of split blocks starts (3 blocks of 256 threads an
+# SM at 72 registers: 396 lanes a wave; 4 of 192: 528), as run AJ2 showed
+# (K5 1.00 x at 415 x 8, K3 1.10 x at 543 x 8); the msm's Horner doublings
+# (1 x 8) run split, precompute_shifted's (4097 or 5000 x 8) lane
 SPLIT_BELOW = {"g1_add": {25: 768, 11: 620, 17: 544},
-               "g1_dbl": {25: 2048, 11: 768},
+               "g1_dbl": {25: 2048, 11: 768, 17: 529},
                "g2_add": {25: 768, 11: 512, 17: 544},
-               "g2_dbl": {25: 1024, 11: 512}}
+               "g2_dbl": {25: 1024, 11: 512, 17: 397}}
 
 
 class Kernel:
@@ -233,7 +239,7 @@ def build(names=tuple(SOURCES), limbs=(BASE_L,)):
         nvcc = nvcc or _nvcc()
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         key = kernel_key(name, L)
-        log = open(BUILD_DIR / f"{key}.log", "w")
+        log = open(so.with_suffix(".log"), "w")
         cmd = [nvcc, *_flags(L), "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / SOURCES[name])]
         procs[key] = (subprocess.Popen(cmd, stdout=log,
@@ -253,15 +259,16 @@ def build(names=tuple(SOURCES), limbs=(BASE_L,)):
                 os.replace(tmp, so)
         time.sleep(0.1)
     if failed:
-        logs = "\n".join((BUILD_DIR / f"{k}.log").read_text()[-4000:]
+        logs = "\n".join(procs[k][2].with_suffix(".log").read_text()[-4000:]
                          for k in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
     return secs
 
 
 def build_log(name, limbs=BASE_L):
-    """nvcc's output (ptxas register and spill report) of the last build."""
-    p = BUILD_DIR / f"{kernel_key(name, limbs)}.log"
+    """nvcc's output (ptxas register and spill report) of the library that
+    the sources as they stand build (beside it, named as it is)."""
+    p = _so_path(name, limbs).with_suffix(".log")
     return p.read_text() if p.exists() else ""
 
 

@@ -95,7 +95,9 @@ LAYOUT = {"g1": ((6, 4), (3, 2), (3, 2)), "g2": ((8, 2), (8, 2), (8, 2))}
 # (run AI1, team_sweep.py --paths): G2 16 products a round of 16 ranks (3
 # columns a rank; 5 rounds an add, 3 a doubling), G1 12 products a round
 # of 16 ranks for the add (3 rounds) and 6 of 32 ranks for the doubling
-# (3 rounds), which no width rule ships yet (team=True reaches it)
+# (3 rounds); the doublings' picks held by run AJ1's re-sweep (G2 0.0616
+# ms at 1 x 8 against (128, 4, 8)'s 0.0701, G1 0.0433 against the add's
+# layout's 0.0461), shipped below cuda.SPLIT_BELOW's 17-limb rules
 SPLIT_LAYOUT = {"g1": {25: ((192, 6, 32), (128, 4, 32)),
                        11: ((192, 6, 16), (192, 6, 16)),
                        17: ((192, 6, 16), (192, 6, 32))},

@@ -40,6 +40,8 @@ variant is as fast.
                           [--paths FILE] [T,W ... | T,W,R ...]
     python3 team_sweep.py sass [--limbs L]
     python3 team_sweep.py fixed
+    (each also with --csrc DIR: the kernels built from the sources in DIR,
+     a copy of kzg_tpu_torch/csrc with a change to try, instead)
         (default: g1 with 3,2 4,2 4,4 6,2 6,4 8,2 16,2, at 17, 25 and
          11 limbs given with --limbs the split layouts
          SPLIT_DEFAULT["g1", L]; g2 with 6,2 8,2 8,4 12,2 16,2, with
@@ -54,7 +56,7 @@ times, then one JSON line per layout and the layouts the package ships
 prints, per kernel of the library, the counts of its multiply and add
 opcodes in `cuobjdump -sass` (a K6 kernel holds one inlined product:
 mont_mul's, or at the limb counts of team.MERGE_DIGITS mont_mul_d32's).
-`fixed` runs chip_smoke.py's split fit alone: K3 and K5 at 25 and 11
+`fixed` runs chip_smoke.py's split fit alone: K3 and K5 at 25, 11 and 17
 limbs on the shipped split layouts at 1 lane, times = 1, 2, 4, 8, each
 exact, with the least-squares intercept and slope. Imports nothing of
 JAX.
@@ -80,9 +82,12 @@ DBL_SHAPES = ((1, 8), (32, 8), (5000, 8))
 # K2-K5 on the split executor: the widths around the width rule too
 SPLIT_ADD_LANES = (1, 32, 128, 256, 512, 544, 576, 640, 704, 768, 1024,
                    1056, 1536, 2048, 4096, 5000, 8192, 10000, 20000)
-SPLIT_DBL_SHAPES = ((1, 8), (32, 8), (256, 8), (512, 8), (768, 8),
-                    (1024, 8), (1536, 8), (2048, 8), (3072, 8), (4097, 8),
-                    (5000, 8), (10000, 8))
+# (every 32 lanes from 384 to 1024 brackets the doublings' rules, where a
+# second wave of split blocks starts)
+SPLIT_DBL_SHAPES = (((1, 8), (32, 8), (256, 8))
+                    + tuple((w, 8) for w in range(384, 1025, 32))
+                    + ((1536, 8), (2048, 8), (3072, 8), (4097, 8), (5000, 8),
+                       (10000, 8)))
 FIT_TIMES = (1, 2, 4, 8)             # the doubling at 1 lane, for `fit`
 NARROW = 8192
 # Per group and limb count. At 25 limbs, G1: whole-block teams of 6
@@ -131,6 +136,10 @@ def main(argv):
         return 2
     from kzg_tpu_torch.context import get_context
     from kzg_tpu_torch.ops import cuda, team
+    if "--csrc" in argv:         # build the kernels from another source tree
+        at = argv.index("--csrc")
+        cuda.CSRC = Path(argv[at + 1]).resolve()
+        argv = argv[:at] + argv[at + 2:]
     if argv[:1] == ["sass"]:
         return sass_counts(int(argv[2]) if argv[1:2] == ["--limbs"] else 25)
     dev = torch.device("cuda", 0)

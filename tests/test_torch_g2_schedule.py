@@ -22,12 +22,13 @@ product inputs and to a b < R p (BN158_AB below). test_torch_groups.py ties
 the plain versions to kzg_tpu on BN254.
 
 The split executor (below cuda.SPLIT_BELOW: K2-K5 at BLS12-381's 25
-limbs and at BN158's 11, K2 and K4 at BN254's 17; each product split
-over R ranks by columns, the schedule leveled for the products a round)
-runs on team.split_block; the BN254 adds with the reset mask (True,
-g1-True: G1 at its widest product operand, 3b (X1Z2 + X2Z1) ~1082 p),
-the bls-split cases (G2), the bls-g1 cases (G1, beside the lane
-executor's model) and the BN158 cases run its model (team.run with
+limbs, at BN158's 11 and at BN254's 17; each product split over R ranks
+by columns, the schedule leveled for the products a round) runs on
+team.split_block; the BN254 adds with the reset mask (True, g1-True: G1
+at its widest product operand, 3b (X1Z2 + X2Z1) ~1082 p), the BN254
+chains of three doublings (3, g1-3), the bls-split cases (G2), the
+bls-g1 cases (G1, beside the lane executor's model) and the BN158 cases
+run its model (team.run with
 k1_team.run's split product) at the same bounds and hold it limb for
 limb against the lane executor's model, and as canonical points against
 kzg_tpu's own add of the group on the same curve (jitted once per
@@ -273,9 +274,9 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, split,
 
 @pytest.mark.parametrize("grp,times,curve,split", [
     pytest.param("g2", 1, "BN254", False, id="1"),
-    pytest.param("g2", 3, "BN254", False, id="3"),
+    pytest.param("g2", 3, "BN254", True, id="3"),
     pytest.param("g1", 1, "BN254", False, id="g1-1"),
-    pytest.param("g1", 3, "BN254", False, id="g1-3"),
+    pytest.param("g1", 3, "BN254", True, id="g1-3"),
     pytest.param("g2", 3, "BLS12381", False, id="bls-3"),
     pytest.param("g2", 3, "BLS12381", True, id="bls-split-3"),
     pytest.param("g1", 3, "BLS12381", True, id="bls-g1-3"),
@@ -284,7 +285,10 @@ def test_add_schedule_matches_plain(grp, with_reset, curve, split,
 def test_dbl_schedule_matches_plain(grp, times, curve, split, monkeypatch):
     """The split executor's block gives the lane executor's limbs and
     kzg_tpu's add of P + P, `times` times; both executors' product inputs
-    are held to the bounds."""
+    are held to the bounds. On BN254 (17 limbs: the G2 doubling's 16 ranks
+    a product, G1's 32) the chain's widest product inputs must reach G1's
+    ~194.8 p (limbs up to 521,256) and G2's ~55.3 p (limbs up to
+    1,013,288)."""
     J, og, P, _, pts, _ = _batch(grp, curve)
     stats = {}
     got = team.plain_dbl(J, P, times, stats=stats,
@@ -313,6 +317,10 @@ def test_dbl_schedule_matches_plain(grp, times, curve, split, monkeypatch):
     _fresh(J, got)
     for st in runs:
         _check_bounds(grp, J, st, plain, BN158_AB if curve == "BN158" else 1)
+        if curve == "BN254" and times == 3:
+            B = J.F.base if J.is_fp2 else J.F
+            value, limb = (55, 1_000_000) if J.is_fp2 else (194, 500_000)
+            assert st["value"] > value * B.modulus and st["limb"] > limb
 
 
 def _fits(w):
@@ -566,19 +574,17 @@ class _FakePoint:
 
 def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
     """For every kernel and limb count of the width rule (K2-K5 on
-    BLS12-381's 25 limbs and on BN158's 11, K2 and K4 on BN254's 17), just
-    below
+    BLS12-381's 25 limbs, on BN158's 11 and on BN254's 17), just below
     SPLIT_BELOW[name][L] lanes cuda.g1_add / g1_dbl / g2_add / g2_dbl call
     the split entry point with the split block (team.split_block), at that
     width the lane entry point with team.block, `team` True or False forces
     either at one lane, each from its group's library built at L limbs,
     each launch counted once under the kernel's key at L; at one lane the
     outputs are the model's limbs (held to the plain versions above).
-    point_grid gives each variant's launch. At 11 limbs K3 and K5 keep
-    the lane entry point at the widths above their rule that
-    precompute_shifted launches (a setup of 4,097 or 5,000 points). At 17
-    limbs K3 and K5 have no rule: they keep the lane entry point at one
-    lane, and `team` True reaches their split one. A limb count without a
+    point_grid gives each variant's launch. At 11 and at 17 limbs K3 and
+    K5 keep the lane entry point at the widths above their rule that
+    precompute_shifted launches (a setup of 4,097 or 5,000 points), and
+    reach the split one at the msm's one lane. A limb count without a
     split layout (17 taken out of SPLIT_LAYOUT) refuses a forced split in
     either group."""
     monkeypatch.setattr(cuda, "_stream", lambda: None)
@@ -626,8 +632,8 @@ def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
                                         "g2_dbl"]
     assert sorted((n, L) for n, b in cuda.SPLIT_BELOW.items() for L in b) \
         == [("g1_add", 11), ("g1_add", 17), ("g1_add", 25), ("g1_dbl", 11),
-            ("g1_dbl", 25), ("g2_add", 11), ("g2_add", 17), ("g2_add", 25),
-            ("g2_dbl", 11), ("g2_dbl", 25)]
+            ("g1_dbl", 17), ("g1_dbl", 25), ("g2_add", 11), ("g2_add", 17),
+            ("g2_add", 25), ("g2_dbl", 11), ("g2_dbl", 17), ("g2_dbl", 25)]
     for name, below in cuda.SPLIT_BELOW.items():
         grp, kind = name[:2], name.endswith("_dbl")
         for L, rule in below.items():
@@ -642,11 +648,11 @@ def test_g2_wrapper_picks_the_variant_by_width(monkeypatch):
             assert cuda.point_grid(name, L, rule) == (
                 -(-rule // (32 // lane[0] * lane[1])), 32 * lane[1])
     for grp in ("g1", "g2"):
-        for lanes in (4097, 5000):
-            assert lanes >= cuda.SPLIT_BELOW[f"{grp}_dbl"][11]
-            launch(f"{grp}_dbl", 11, lanes, None, False)
-        launch(f"{grp}_dbl", cuda.BASE_L, 1, None, False)
-        launch(f"{grp}_dbl", cuda.BASE_L, 1, True, True)
+        for L in (11, cuda.BASE_L):
+            for lanes in (4097, 5000):
+                assert lanes >= cuda.SPLIT_BELOW[f"{grp}_dbl"][L]
+                launch(f"{grp}_dbl", L, lanes, None, False)
+            launch(f"{grp}_dbl", L, 1, None, True)
     bn = get_context("BN254", "cpu")
     for J, fn, grp in ((bn.g1, cuda.g1_add, "g1"), (bn.g2, cuda.g2_add,
                                                      "g2")):
